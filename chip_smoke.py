@@ -38,6 +38,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(REPO, "tests", "data", "probe_detector_w96.npz")
 EQ_SOURCE = "facerec_torch/csrc/equalize.cu"
 EQ_TPU = "facerec_tpu/ops/pallas/equalize.py"
+MAIN_BLOCK = (128, 384, 768)        # the main path's plane: 576x768 cropped
+MAIN_FRAMES = (128, 576, 768)       # the main path's block of RGB frames
+# further frames for the RGB entry point, (B, H, W) and whether to crop:
+# 1080p, 4K, 6 padding rows, and ragged widths (3W % 16 != 0) with 7
+# and 6 padding rows
+RGB_SHAPES = [((8, 1080, 1920), True), ((2, 2160, 3840), True),
+              ((2, 90, 192), False), ((3, 41, 130), False),
+              ((2, 90, 200), False)]
 
 # Device-memory rate by card, bytes/s (NVIDIA data sheets); the bound of
 # a memory-bound kernel is its bytes over this rate.
@@ -64,20 +72,23 @@ def mem_rate(name: str) -> float:
     return MEM_RATE_DEFAULT
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+def time_ms(fn, reps: int = 10, trials: int = 5, warmup: int = 3) -> float:
+    """Device ms of one ``fn()``: CUDA events around ``reps`` calls back
+    to back, so that the host's work for one call overlaps the card's
+    work for the one before; the median over ``trials`` after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -116,7 +127,7 @@ def make_plane(shape, real_rows, seed, dev):
 
 def phase_kernels(dev, rate):
     """Phase 2: each kernel against its plain version, bit for bit."""
-    shapes = [((128, 384, 768), 384), ((8, 960, 1920), 960),
+    shapes = [(MAIN_BLOCK, 384), ((8, 960, 1920), 960),
               ((2, 1920, 3840), 1920), ((3, 48, 130), 41)]
     rows = []
     for i, (shape, real) in enumerate(shapes):
@@ -153,6 +164,127 @@ def phase_kernels(dev, rate):
         }
         emit({"phase": "kernels", **row})
         rows.append(row)
+    return rows
+
+
+def skewed_planes(dev, shape=MAIN_BLOCK, seed=7):
+    """Planes whose histograms are not flat, as films have them: a
+    black frame (all bin 0), a white flash (all bin 255) and a dark
+    scene (values in [0, 8))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "bin0": torch.zeros(shape, device=dev),
+        "bin255": torch.full(shape, 255.0, device=dev),
+        "dark": torch.rand(shape, generator=g, device=dev) * 8.0,
+    }
+
+
+def phase_skewed(dev, rate):
+    """Phase 2, skewed planes at the main block: each kernel equal to
+    its plain version and timed, to hold against the uniform plane."""
+    rows = []
+    for kind, y in skewed_planes(dev).items():
+        hist = eqm.hist256(y)
+        eq, cum = eqm.cum_lookup(y, hist)
+        hist_p = eqm.hist256_plain(y)
+        eq_p, cum_p = eqm.cum_lookup_plain(y, hist_p)
+        torch.cuda.synchronize()
+        if not (torch.equal(hist, hist_p) and torch.equal(eq, eq_p)
+                and torch.equal(cum, cum_p)):
+            raise AssertionError(f"equalize kernels differ from the plain "
+                                 f"version on the {kind} plane")
+        plane = y.numel() * 4
+        row = {"plane": kind, "shape": list(y.shape), "equal": True,
+               "hist256_ms": time_ms(lambda: eqm.hist256(y)),
+               "hist256_bound_ms": (plane + y.shape[0] * 1024) / rate * 1e3,
+               "cum_lookup_ms": time_ms(lambda: eqm.cum_lookup(y, hist)),
+               "cum_lookup_bound_ms":
+                   (2 * plane + 2 * y.shape[0] * 1024) / rate * 1e3}
+        emit({"phase": "kernels_skewed", **row})
+        rows.append(row)
+    return rows
+
+
+def make_rgb(kind, shape, dev, seed=11):
+    """(B, H, W, 3) uint8 frames: noise, black, white, or a dark scene
+    (every channel in [0, 8))."""
+    size = (*shape, 3)
+    if kind == "black":
+        return torch.zeros(size, dtype=torch.uint8, device=dev)
+    if kind == "white":
+        return torch.full(size, 255, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 8 if kind == "dark" else 256, size, generator=g,
+                         device=dev, dtype=torch.uint8)
+
+
+def all_triples(dev):
+    """One (1, 4096, 4096, 3) frame holding every uint8 RGB triple."""
+    i = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+    rgb = torch.stack([i >> 16, (i >> 8) & 255, i & 255], dim=-1)
+    return rgb.to(torch.uint8).reshape(1, 4096, 4096, 3)
+
+
+def check_rgb(frames, lo, hi, gray, what):
+    """Both entry points of hist256 and cum_lookup against the plain
+    versions on the same frames, bit for bit; ``y`` against
+    luminance()."""
+    y, hist = eqm.hist256_rgb(frames, lo, hi, gray)
+    y_p, hist_p = eqm.hist256_rgb_plain(frames, lo, hi, gray)
+    hist_f = eqm.hist256(y_p)
+    eq, cum = eqm.cum_lookup(y, hist)
+    eq_p, cum_p = eqm.cum_lookup_plain(y_p, hist_p)
+    torch.cuda.synchronize()
+    pairs = {"y": (y, y_p), "hist": (hist, hist_p),
+             "hist (plane entry)": (hist_f, hist_p), "eq": (eq, eq_p),
+             "cum": (cum, cum_p)}
+    bad = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{bad} differ from the plain version on "
+                             f"{what}")
+
+
+def phase_rgb(dev, rate):
+    """Phase 2, the RGB entry point: the main path's frames (noise,
+    black, white, dark, grayscale) timed, then 1080p, 4K, a ragged
+    width, grayscale, and every RGB triple checked."""
+    b, h, w = MAIN_FRAMES
+    lo, hi = scene_ops.crop_bounds(h, w, True)
+    r = eqm.packed_rows(hi - lo)
+    bound = (3 * b * (hi - lo) * w + 4 * b * r * w + 1024 * b) / rate * 1e3
+    rows = []
+    for kind, gray in (("noisy", False), ("black", False), ("white", False),
+                       ("dark", False), ("noisy", True)):
+        frames = make_rgb(kind, MAIN_FRAMES, dev)
+        check_rgb(frames, lo, hi, gray, f"{kind} frames")
+        row = {"frames": kind, "grayscale": gray, "shape": list(frames.shape),
+               "crop": [lo, hi], "equal": True,
+               "hist256_rgb_ms": time_ms(
+                   lambda: eqm.hist256_rgb(frames, lo, hi, gray)),
+               "hist256_rgb_plain_ms": time_ms(
+                   lambda: eqm.hist256_rgb_plain(frames, lo, hi, gray)),
+               "hist256_rgb_bound_ms": bound}
+        if not gray:
+            y, hist = eqm.hist256_rgb(frames, lo, hi)
+            row["cum_lookup_ms"] = time_ms(lambda: eqm.cum_lookup(y, hist))
+        emit({"phase": "kernels_rgb", **row})
+        rows.append(row)
+        del frames
+    for shape, crop in RGB_SHAPES:
+        frames = make_rgb("noisy", shape, dev)
+        c_lo, c_hi = scene_ops.crop_bounds(shape[1], shape[2], crop)
+        for gray in (False, True):
+            check_rgb(frames, c_lo, c_hi, gray, f"{shape} gray={gray}")
+        emit({"phase": "kernels_rgb", "shape": list(frames.shape),
+              "crop": [c_lo, c_hi], "equal": True})
+    frames = all_triples(dev)
+    n = frames.shape[1]
+    check_rgb(frames, 0, n, False, "all 2^24 RGB triples")
+    if not torch.equal(eqm.hist256_rgb(frames, 0, n)[0],
+                       eqm.luminance(frames)):
+        raise AssertionError("y differs from luminance() on the RGB triples")
+    emit({"phase": "kernels_rgb", "frames": "all 2^24 RGB triples",
+          "shape": list(frames.shape), "y_equal_luminance": True})
     return rows
 
 
@@ -365,6 +497,8 @@ def main() -> int:
           "mem_rate_bytes_per_s": rate})
 
     rows = phase_kernels(dev, rate)
+    phase_skewed(dev, rate)
+    rgb = phase_rgb(dev, rate)[0]        # noisy frames at the main input
     with tempfile.TemporaryDirectory() as tmp:
         main_path = phase_main_path(dev, os.path.join(tmp, "main"))
         phase_card_vs_cpu(dev, os.path.join(tmp, "cmp"))
@@ -384,6 +518,11 @@ def main() -> int:
             "bound_ms": main_row[f"{kname}_bound_ms"], "bound_by": "bytes",
             "library_ms": main_row.get(f"{kname}_library_ms"),
             "shape": main_row["shape"]})
+    kernels[0].update({       # hist256's RGB entry point, the main path's
+        "rgb_ms": rgb["hist256_rgb_ms"],
+        "rgb_plain_ms": rgb["hist256_rgb_plain_ms"],
+        "rgb_bound_ms": rgb["hist256_rgb_bound_ms"],
+        "rgb_shape": rgb["shape"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

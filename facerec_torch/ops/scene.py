@@ -3,9 +3,10 @@
 Port of ``facerec_tpu/ops/scene.py``: the same statistics and fixed
 thresholds ("Fast Pixel-Based Video Scene Change Detection"), a whole
 block of frames at once, with only the last frame's planes plus four
-scalars carried across blocks.  Per-frame histogram equalization runs
-on the hand-written CUDA kernels (:mod:`facerec_torch.ops.equalize`)
-when the frames are on the card.
+scalars carried across blocks.  Luminance and per-frame histogram
+equalization run on the hand-written CUDA kernels
+(:mod:`facerec_torch.ops.equalize`) when the frames are on the card:
+they read the uint8 frames directly.
 """
 from __future__ import annotations
 
@@ -13,12 +14,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from facerec_torch.ops.equalize import equalize_stats, pack_planes
-
-# Luminance weights as float32 values, widened to float64 (see
-# :func:`luminance`).
-_W = [float(torch.tensor(w, dtype=torch.float32))
-      for w in (0.299, 0.587, 0.114)]
+# luminance lives beside the kernel that computes it; scene.luminance
+# stays a name of this module
+from facerec_torch.ops.equalize import (  # noqa: F401
+    cum_lookup, cum_lookup_plain, hist256_rgb, hist256_rgb_plain, luminance,
+    pack_planes)
 
 
 class SceneState(NamedTuple):
@@ -55,24 +55,6 @@ def crop_bounds(height: int, width: int, crop: bool) -> Tuple[int, int]:
     return 0, height
 
 
-def luminance(frames: torch.Tensor) -> torch.Tensor:
-    """RGB uint8 (..., H, W, 3) → float32 luminance Y.
-
-    The JAX package's CPU path computes this 3-term dot as
-    ``fma(b, w2, fma(g, w1, r * w0))`` in float32.  Each step is
-    reproduced exactly here in float64: the products of a uint8 and a
-    float32 weight, and the sums of two such terms below 512, are exact
-    in float64, so rounding to float32 after each step gives the same
-    single roundings as the fused multiply-adds.  A pixel whose Y lies
-    on an integer boundary therefore lands in the same histogram bin on
-    every device.
-    """
-    f32, f64 = torch.float32, torch.float64
-    p = (frames[..., 0].to(f32) * _W[0]).to(f64)
-    q = (p + frames[..., 1].to(f64) * _W[1]).to(f32).to(f64)
-    return (q + frames[..., 2].to(f64) * _W[2]).to(f32)
-
-
 def decide(mafd, mafd_eq, sdmafd_eq, adfv_eq) -> torch.Tensor:
     """The fixed-threshold decision rule, elementwise over a block;
     earlier rules take precedence."""
@@ -105,12 +87,13 @@ def detect_block(frames: torch.Tensor, state: SceneState, crop: bool = True,
     lo, hi = crop_bounds(height, width, crop)
     p = (hi - lo) * width
 
-    if grayscale:
-        y_plane = frames[:, lo:hi, :, 0].to(torch.float32)
+    if frames.device.type == "cuda":
+        # the kernels read the uint8 frames and write the packed plane
+        y, counts = hist256_rgb(frames.contiguous(), lo, hi, grayscale)
+        eq, cum = cum_lookup(y, counts)
     else:
-        y_plane = luminance(frames[:, lo:hi])
-    y = pack_planes(y_plane).contiguous()
-    eq, cum = equalize_stats(y)
+        y, counts = hist256_rgb_plain(frames, lo, hi, grayscale)
+        eq, cum = cum_lookup_plain(y, counts)
 
     # Padding rows hold -1 in y and 0 in eq for every frame, so they add
     # 0 to the diffs; dividing by p keeps the means over real pixels.

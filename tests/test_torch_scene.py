@@ -103,6 +103,53 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         eqm.hist256(y)
     with pytest.raises(ValueError, match="CUDA"):
         eqm.cum_lookup(y, torch.zeros((1, 256), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        eqm.hist256_rgb(torch.zeros((2, 16, 32, 3), dtype=torch.uint8), 0, 16)
+
+
+@pytest.mark.parametrize("height,width,crop,grayscale", [
+    (144, 192, True, False),    # the 2:1 crop to 96 rows
+    (90, 200, False, False),    # uncropped: 6 padding rows, 3W % 16 != 0
+    (144, 192, True, True),     # grayscale: channel 0 as luminance
+    (90, 200, False, True),
+])
+def test_hist256_rgb_plain_matches_jax(height, width, crop, grayscale):
+    """The RGB entry point's plain version: the packed plane bit-equal
+    to the JAX package's (luminance or channel 0, then pack_planes) and
+    its counts equal to ``_equalize_raw``'s."""
+    frames = make_frames(6, width=width, height=height, seed=5,
+                         cuts=(3,)).frames
+    lo, hi = scene.crop_bounds(height, width, crop)
+    block = jnp.asarray(frames[:, lo:hi])
+    want_y = jpack(block[..., 0].astype(jnp.float32) if grayscale
+                   else jscene.luminance(block))
+    _, want_cum = jscene._equalize_raw(want_y)
+    before = dict(eqm.launches)
+    y, hist = eqm.hist256_rgb_plain(torch.from_numpy(frames), lo, hi,
+                                    grayscale)
+    assert eqm.launches == before
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want_y))
+    np.testing.assert_array_equal(
+        hist.numpy(),
+        np.diff(np.asarray(want_cum), axis=-1, prepend=0).astype(np.int32))
+
+
+@pytest.mark.parametrize("frames,lo,hi,error,match", [
+    (torch.zeros((2, 16, 32, 3)), 0, 16, TypeError, "uint8"),
+    (torch.zeros((2, 32, 16, 3), dtype=torch.uint8).transpose(1, 2), 0, 16,
+     ValueError, "contiguous"),
+    (torch.zeros((2, 16, 32, 4), dtype=torch.uint8), 0, 16, ValueError,
+     "frames"),
+    (torch.zeros((2, 16, 32, 3), dtype=torch.uint8), 8, 8, ValueError,
+     "crop"),
+    (torch.zeros((2, 16, 32, 3), dtype=torch.uint8), 0, 17, ValueError,
+     "crop"),
+    (torch.zeros((2, 16, 32, 3), dtype=torch.uint8), -1, 8, ValueError,
+     "crop"),
+])
+def test_rgb_wrapper_rejects_bad_frames(frames, lo, hi, error, match):
+    with pytest.raises(error, match=match):
+        eqm.hist256_rgb(frames, lo, hi)
 
 
 def test_initial_state_matches_jax():
