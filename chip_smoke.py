@@ -6,25 +6,32 @@ Builds the port's CUDA kernels from ``facerec_torch/csrc``, holds each
 against its plain PyTorch version on the card, drives the extract
 stage end to end at full model width (detector w96 with the committed
 probe weights, four full FaceNets, 128-frame blocks) on an in-memory
-synthetic film, and compares a card run with a CPU run of the same
-path.  Any failed check raises, so the script exits non-zero; it also
-exits non-zero without a card.  It prints JSON lines; the one before
-the last lists the kernels, the last is
+synthetic film, then the whole orchestrated pipeline (extract → merge →
+cluster → classify) on the same film, replays the probe-quality gates
+of ``tests/test_probe_quality.py``, times cluster and classify at the
+size a film gives them, and compares a card run with a CPU run of the
+pipeline.  Any failed check raises, so the script exits non-zero; it
+also exits non-zero without a card.  It prints JSON lines; the one
+before the last lists the kernels, the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 import torch
 
-from facerec_torch.config import FACENET_DIMS, ExtractConfig
+from facerec_torch.config import (ACTOR_ID_PREFIX, EMB_NAME, FACENET_DIMS,
+                                  ClassifyConfig, ClusterConfig,
+                                  ExtractConfig, MergeConfig, PipelineConfig)
 from facerec_torch.models.detector import DetectorHarness, fit_input_size
 from facerec_torch.ops import _build
 from facerec_torch.ops import equalize as eqm
@@ -93,18 +100,27 @@ def time_ms(fn, reps: int = 10, trials: int = 5, warmup: int = 3) -> float:
 
 
 def device_profile(fn):
-    """(device activities, their summed device ms) of one ``fn()`` under
-    torch.profiler: kernels, copies and memsets on the card."""
+    """(device activities, their summed device ms, wall ms) of one
+    ``fn()`` under torch.profiler: kernels, copies and memsets on the
+    card.  A window that comes back without device activities is
+    measured once more: on an H100 with torch 2.11, a window that
+    followed one of ~10^4 activities or more sometimes came back
+    empty."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
+    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3, wall
 
 
 def make_plane(shape, real_rows, seed, dev):
@@ -304,22 +320,53 @@ def check_features(path, dims):
     return n
 
 
-def phase_main_path(dev, out_root, h=576, w=768, n_frames=256,
-                    cuts=(85, 170)):
-    """Phase 3: the extract stage at full width on the card (a 576×768
-    film, two 128-frame blocks)."""
-    film = make_frames(n_frames, width=w, height=h, seed=0, cuts=cuts,
+def smoke_film(n_frames=256, h=576, w=768, cuts=(85, 170)):
+    """The in-memory film of phases 3 and 4: 576×768, two 128-frame
+    blocks, two cuts, 2 faces from 3 identities."""
+    return make_frames(n_frames, width=w, height=h, seed=0, cuts=cuts,
                        n_faces=2, identities=3, path="777-Smoke_Film.mp4")
-    cfg = ExtractConfig(face_threshold=0.9, save_images=False, resume=False)
+
+
+def full_width_models(dev, film, cfg):
+    """The committed probe detector (w96) at the film's native size and
+    the four full FaceNets, random from seeds 0..3."""
     detector = DetectorHarness.from_npz(
-        PROBE, device=dev, input_size=fit_input_size(h, w, long_side=w),
+        PROBE, device=dev,
+        input_size=fit_input_size(film.height, film.width,
+                                  long_side=max(film.height, film.width)),
         max_detections=cfg.max_detections,
         score_threshold=cfg.face_threshold, min_face_size=cfg.min_face_size)
-    embedders = EmbedderBank.create_default(dev)
-    torch.cuda.synchronize()
+    return detector, EmbedderBank.create_default(dev)
 
+
+def reset_launches() -> None:
     for k in eqm.launches:
         eqm.launches[k] = 0
+
+
+def wall_ms(fn, runs: int = 3) -> float:
+    """Median of ``runs`` synchronised wall times after one warm-up."""
+    times = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def phase_main_path(dev, out_root, film):
+    """Phase 3: the extract stage at full width on the card (a 576×768
+    film, two 128-frame blocks)."""
+    h, w, n_frames = film.height, film.width, film.n_frames
+    cuts = film.scene_cuts
+    cfg = ExtractConfig(face_threshold=0.9, save_images=False, resume=False)
+    detector, embedders = full_width_models(dev, film, cfg)
+    torch.cuda.synchronize()
+
+    reset_launches()
     t0 = time.perf_counter()
     counters = run_extract(film, cfg, out_root, detector=detector,
                            embedders=embedders, device=dev)
@@ -365,18 +412,6 @@ def phase_main_path(dev, out_root, h=576, w=768, n_frames=256,
                     (n_crops, 1))
     fidx = np.arange(n_crops) % cfg.block_frames
 
-    def wall_ms(fn):
-        """Median of 3 synchronised wall times after one warm-up."""
-        times = []
-        for i in range(4):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if i:
-                times.append((time.perf_counter() - t) * 1e3)
-        return float(np.median(times))
-
     with torch.inference_mode():
         state0 = scene_ops.initial_state(h, w, device=dev)
         stages = {
@@ -392,7 +427,7 @@ def phase_main_path(dev, out_root, h=576, w=768, n_frames=256,
         block_ms, block_device = {}, {}
         for key, fn in stages.items():
             block_ms[key] = wall_ms(fn)
-            n_dev, dev_ms = device_profile(fn)
+            n_dev, dev_ms, _ = device_profile(fn)
             block_device[key] = {
                 "device_activities": n_dev, "device_ms": dev_ms,
                 "busy_share": dev_ms / block_ms[key]}
@@ -407,6 +442,8 @@ def phase_main_path(dev, out_root, h=576, w=768, n_frames=256,
         "block_ms": block_ms, "block_device": block_device,
     }
     emit(result)
+    result["features_path"] = os.path.join(data, "features",
+                                           f"features_777_{rng}.jsonl")
     return result
 
 
@@ -433,19 +470,27 @@ class StubBank(EmbedderBank):
 
 
 def phase_card_vs_cpu(dev, out_root):
-    """Phase 4: the same path on the card and on the CPU."""
+    """Phase 4: extract → merge → cluster → classify on the card and on
+    the CPU; every file identical, the embeddings within 1e-5."""
     film = make_frames(64, width=384, height=288, seed=1, cuts=(30,),
                        path="778-Card_Cpu.mp4")
     cfg = ExtractConfig(block_frames=32, save_images=False, resume=False)
+    # imported here, as in the phases below, so that
+    # scripts/equalize_ab.sh can load this file over an older package
+    from facerec_torch.pipeline import classify as classify_mod
+    from facerec_torch.pipeline import merge as merge_mod
+    from facerec_torch.pipeline.cluster import run_cluster
+
+    runs = {"card": dev, "cpu": torch.device("cpu")}
     outs = {}
-    for d in (dev, torch.device("cpu")):
-        root = os.path.join(out_root, d.type)
+    for label, d in runs.items():
+        root = os.path.join(out_root, label)
         run_extract(film, cfg, root, detector=ScriptedDetector(film),
                     embedders=StubBank(), device=d)
-        outs[d.type] = os.path.join(root, "778-data")
+        outs[label] = os.path.join(root, "778-data")
 
     def read(kind):
-        sub = os.path.join(outs["cuda"], kind)
+        sub = os.path.join(outs["card"], kind)
         names = sorted(os.listdir(sub))
         return [(n, open(os.path.join(sub, n), "rb").read(),
                  open(os.path.join(outs["cpu"], kind, n), "rb").read())
@@ -471,12 +516,268 @@ def phase_card_vs_cpu(dev, out_root):
             n += 1
     if n == 0 or max_err > 1e-5:
         raise AssertionError(f"features: {n} records, max err {max_err}")
+
+    # merge → cluster → classify on each device, one actor zip for both
+    zpath = os.path.join(out_root, "actor-images.zip")
+    for label, d in runs.items():
+        data = outs[label]
+        merge_mod.run_merge(data, 778, MergeConfig(min_face_size=20))
+        if label == "card":
+            write_actor_zip(zpath, os.path.join(data, "features.jsonl"), "m1")
+        run_cluster(data, ClusterConfig(size=2, min_size=1, max_size=4,
+                                        emb_name="m1"), d)
+        emb, _ = classify_mod.read_actor_embeddings(zpath, "m1")
+        ccfg = ClassifyConfig(k=3, emb_name="m1", min_samples=3)
+        x, y = classify_mod.build_training_set(emb, ccfg.min_samples)
+        classify_mod.run_classify(data, x, y, ccfg, d)
+    for fname in ("trajectories.jsonl", "scene_changes.json",
+                  "clusters.json", "predictions.json"):
+        a, b = (open(os.path.join(outs[k], fname), "rb").read()
+                for k in ("card", "cpu"))
+        if a != b:
+            raise AssertionError(f"{fname} differs card vs CPU")
+    clusters = json.load(open(os.path.join(outs["card"], "clusters.json")))
+    preds = json.load(open(os.path.join(outs["card"], "predictions.json")))
+    if not preds["predictions"]:
+        raise AssertionError("card_vs_cpu: no predictions")
     result = {"phase": "card_vs_cpu", "feature_records": n,
               "embedding_max_abs_err": max_err,
               "trajectories_identical": True,
-              "scene_changes_identical": True}
+              "scene_changes_identical": True,
+              "merged_trajectories_identical": True,
+              "clusters_identical": True, "predictions_identical": True,
+              "clusters": len(set(clusters["clusters"])),
+              "predictions": sum(len(v) for v in
+                                 preds["predictions"].values())}
     emit(result)
     return result
+
+
+def write_actor_zip(path, features_path, emb_name, n_actors=3, per=3):
+    """A synthetic ``actor-images.zip``: ``n_actors`` actors placed near
+    the run's own embeddings (the recipe of
+    ``tests/test_extract_e2e.py:test_full_pipeline``)."""
+    with open(features_path) as f:
+        feats = [json.loads(line) for line in f]
+    if not feats:
+        raise AssertionError(f"no feature records in {features_path}")
+    rng = np.random.default_rng(0)
+    with zipfile.ZipFile(path, "w") as z:
+        for a in range(n_actors):
+            base = np.array(feats[min(a, len(feats) - 1)]
+                            ["embeddings"][emb_name])
+            for i in range(per):
+                vec = (base + rng.normal(size=base.size) * 0.01).tolist()
+                z.writestr(f"a{a}_{i}.json", json.dumps({
+                    "box": [0, 0, 1, 1], "embeddings": {emb_name: vec},
+                    "actorID": str(500 + a), "actorname": f"A{a}"}))
+
+
+def phase_pipeline(dev, out_root, film, features_path):
+    """The orchestrated pipeline (extract → merge → cluster → classify)
+    on the card at full width, on phase 3's film; the actor zip holds 3
+    actors placed near phase 3's own EMB_NAME embeddings of that film."""
+    from facerec_torch.pipeline.orchestrate import build_stages, run_pipeline
+
+    ecfg = ExtractConfig(face_threshold=0.9, save_images=False, resume=False)
+    pcfg = PipelineConfig(extract=ecfg, merge=MergeConfig(min_face_size=20))
+    detector, embedders = full_width_models(dev, film, ecfg)
+    actors_dir = os.path.join(out_root, "actors")
+    os.makedirs(actors_dir)
+    write_actor_zip(os.path.join(actors_dir, "actor-images.zip"),
+                    features_path, EMB_NAME)
+    stages = build_stages(film, out_root, pcfg, actors_dir=actors_dir,
+                          device=dev, detector=detector, embedders=embedders)
+    data = os.path.join(out_root, "777-data")
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ok = run_pipeline(stages, data_dir=data, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(eqm.launches)
+    if not ok:
+        raise AssertionError("the orchestrated pipeline failed (traceback "
+                             "above)")
+
+    n_blocks = -(-film.n_frames // ecfg.block_frames)
+    for fname in ("trajectories.jsonl", "features.jsonl",
+                  "scene_changes.json", "clusters.json", "predictions.json"):
+        if not os.path.isfile(os.path.join(data, fname)):
+            raise AssertionError(f"pipeline wrote no {fname}")
+    with open(os.path.join(data, "scene_changes.json")) as f:
+        cuts = json.load(f)["frame_indices"]
+    if cuts != film.scene_cuts:
+        raise AssertionError(f"scene changes {cuts} != {film.scene_cuts}")
+    with open(os.path.join(data, "trajectories.jsonl")) as f:
+        n_traj = sum(1 for _ in f)
+    with open(os.path.join(data, "clusters.json")) as f:
+        clusters = json.load(f)["clusters"]
+    if n_traj == 0 or len(clusters) != n_traj:
+        raise AssertionError(f"{len(clusters)} cluster labels for {n_traj} "
+                             f"merged trajectories")
+    with open(os.path.join(data, "predictions.json")) as f:
+        preds = json.load(f)["predictions"]
+    keys = [k for v in preds.values() for k in v]
+    pattern = re.compile(re.escape(ACTOR_ID_PREFIX) + r"\d+$")
+    if not keys or not all(pattern.match(k) for k in keys):
+        raise AssertionError(f"predictions keyed {keys[:5]}")
+    if launches != {"hist256": n_blocks, "cum_lookup": n_blocks}:
+        raise AssertionError(f"kernel launches {launches}, "
+                             f"expected {n_blocks} each")
+    with open(os.path.join(data, "run_report.json")) as f:
+        report = json.load(f)
+    result = {
+        "phase": "pipeline", "frames": film.n_frames, "blocks": n_blocks,
+        "wall_seconds": wall, "frames_per_second": film.n_frames / wall,
+        "stage_seconds": report["pipeline"]["counters"],
+        "stage_wall_seconds": {k: v["wall_seconds"]
+                               for k, v in report.items()},
+        "scene_changes": cuts, "merged_trajectories": n_traj,
+        "clusters": len(set(clusters)), "predictions": len(keys),
+        "launches": launches,
+        "counters": {k: report[k]["counters"]
+                     for k in ("merge", "cluster", "classify")},
+    }
+    emit(result)
+    return result
+
+
+def phase_probe_quality(dev, out_root):
+    """The replay of tests/test_probe_quality.py on the card at its
+    pinned budget (384×288, 180 frames, cuts at 60 and 120, detector
+    input 384²), on the painted frames (no mp4 decode on this host)."""
+    from facerec_torch.pipeline import merge as merge_mod
+    from facerec_torch.tools.selfcheck import score_detections
+
+    film = make_frames(180, width=384, height=288, seed=0, cuts=(60, 120),
+                       n_faces=2, identities=3, path="777-Probe_Film.mp4")
+    harness = DetectorHarness.from_npz(
+        PROBE, device=dev, input_size=(384, 384), max_detections=16,
+        score_threshold=0.9, min_face_size=20)
+    run_extract(film, ExtractConfig(face_threshold=0.9, resume=False,
+                                    save_images=False),
+                out_root, detector=harness, embedders=StubBank(), device=dev)
+    merge_mod.main(["--path", os.path.join(out_root, "*-data"),
+                    "--min-face-size", "20"])
+    data = os.path.join(out_root, "777-data")
+    det = score_detections(data, film.truth)
+    with open(os.path.join(data, "scene_changes.json")) as f:
+        cuts = json.load(f)["frame_indices"]
+    result = {"phase": "probe_quality", **det, "scene_changes": cuts,
+              "truth_cuts": film.scene_cuts,
+              "gates": {"precision": 0.9, "recall": 0.8}}
+    emit(result)
+    if det["precision"] < 0.9 or det["recall"] < 0.8:
+        raise AssertionError(f"probe gates missed: {det}")
+    if cuts != film.scene_cuts:
+        raise AssertionError(f"probe cuts {cuts} != {film.scene_cuts}")
+    return result
+
+
+def identity_vectors(n, n_ids, rng, dim=128, spread=0.5):
+    """``n`` unit vectors around ``n_ids`` seeded identities."""
+    centers = rng.normal(size=(n_ids, dim))
+    x = centers[rng.integers(0, n_ids, n)] + rng.normal(size=(n, dim)) * spread
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def timed(fn):
+    """Wall ms (median of 3 after a warm-up); device activities, device
+    ms and wall ms of one profiled run; the busy share, device ms over
+    the median wall (the profiled run's own wall is no yardstick:
+    torch.profiler adds host time to every launch)."""
+    ms = wall_ms(fn)
+    n_dev, dev_ms, prof_ms = device_profile(fn)
+    return {"wall_ms": ms, "device_activities": n_dev, "device_ms": dev_ms,
+            "profiled_wall_ms": prof_ms, "busy_share": dev_ms / ms}
+
+
+def phase_downstream_scale(dev, sizes=(1000, 4000), n_queries=40_000,
+                           n_actors=40):
+    """Cluster and classify at the size a film gives them: N trajectory
+    means from 60 identities, and a 100-minute film's face queries
+    against 40 actors × 20 rows.  The card's distances are held to a
+    float64 CPU computation (1e-3); its merge sequence and neighbours to
+    the CPU loop and stable sort run on the card's own matrix."""
+    from facerec_torch.ops import knn, linkage
+    from facerec_torch.pipeline import classify as classify_mod
+    from facerec_torch.pipeline.cluster import cluster_trajectories
+
+    # the KNN first and the largest profile last: short windows right
+    # after a profile of ~10^5 device activities came back empty
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(n_actors, 128))
+    embeddings = []
+    for a in range(n_actors):
+        for _ in range(int(rng.integers(3, 15))):
+            v = centers[a] + rng.normal(size=128) * 0.5
+            embeddings.append((9000 + a, (v / np.linalg.norm(v)).tolist()))
+    tx, ty = classify_mod.build_training_set(embeddings, 20)
+    q = identity_vectors(n_queries, n_actors, rng)
+    k = ClassifyConfig().k
+    qd, txd = torch.from_numpy(q).to(dev), torch.from_numpy(tx).to(dev)
+    d2 = knn.squared_distances(qd, txd)
+    q64, t64 = q.astype(np.float64), tx.astype(np.float64)
+    ref = (np.sum(q64 * q64, -1)[:, None] - 2 * q64 @ t64.T
+           + np.sum(t64 * t64, -1)[None])
+    err = float(np.max(np.abs(d2.cpu().numpy() - ref)))
+    if err > 1e-3:
+        raise AssertionError(f"KNN distances: max err {err}")
+    nbr = knn.nearest(d2, k).cpu()
+    if not torch.equal(nbr, knn.nearest(d2.cpu(), k)):
+        raise AssertionError("KNN neighbours differ from the CPU stable "
+                             "sort on the card's matrix")
+    srt = torch.sort(d2, dim=1).values
+    out = {"phase": "downstream_scale", "knn": {
+        "queries": n_queries, "train_rows": len(tx), "classes": n_actors,
+        "k": k, "dim": 128, "distance_max_abs_err": err,
+        "neighbours_identical": True,
+        "ties_at_kth": int((srt[:, k - 1] == srt[:, k]).sum()),
+        "knn_predict_proba":
+            timed(lambda: knn.knn_predict_proba(tx, ty, q, k, dev)),
+        "distances": timed(lambda: knn.squared_distances(qd, txd)),
+        "selection": timed(lambda: knn.nearest(d2, k)),
+    }, "linkage": []}
+
+    rng = np.random.default_rng(0)
+    for n in sizes:
+        x = identity_vectors(n, 60, rng)
+        x64 = x.astype(np.float64)
+        sq = np.sum(x64 * x64, -1)
+        ref = np.sqrt(np.maximum(sq[:, None] - 2 * x64 @ x64.T + sq[None],
+                                 0.0))
+        xd = torch.from_numpy(x).to(dev)
+        dist = linkage.pairwise_distances(xd)
+        # off the diagonal; on it (never read by the merge loop) the
+        # sqrt magnifies the rounding of |x|² − 2x·x + |x|² ≈ 0
+        diff = np.abs(dist.cpu().numpy() - ref)
+        diag = float(np.max(np.diag(diff)))
+        np.fill_diagonal(diff, 0.0)
+        err = float(np.max(diff))
+        if err > 1e-3:
+            raise AssertionError(f"distances at N={n}: max err {err}")
+        merges = linkage.complete_linkage_merges(dist).cpu()
+        t = time.perf_counter()
+        cpu_merges = linkage.complete_linkage_merges(dist.cpu())
+        cpu_s = time.perf_counter() - t
+        if not torch.equal(merges, cpu_merges):
+            raise AssertionError(f"merge sequence at N={n} differs from "
+                                 f"the CPU loop on the card's matrix")
+        row = {"n": n, "dim": x.shape[1], "distance_max_abs_err": err,
+               "diagonal_max_abs_err": diag,
+               "merges_identical": True, "cpu_loop_seconds": cpu_s}
+        row["distances"] = timed(lambda: linkage.pairwise_distances(xd))
+        row["merge_loop"] = timed(
+            lambda: linkage.complete_linkage_merges(dist))
+        row["merge_loop"]["activities_per_step"] = (
+            row["merge_loop"]["device_activities"] / (n - 1))
+        row["cluster_trajectories"] = timed(
+            lambda: cluster_trajectories(x, 18, 12, 24, dev))
+        out["linkage"].append(row)
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -500,7 +801,13 @@ def main() -> int:
     phase_skewed(dev, rate)
     rgb = phase_rgb(dev, rate)[0]        # noisy frames at the main input
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = phase_main_path(dev, os.path.join(tmp, "main"))
+        film = smoke_film()
+        main_path = phase_main_path(dev, os.path.join(tmp, "main"), film)
+        pipeline = phase_pipeline(dev, os.path.join(tmp, "pipeline"), film,
+                                  main_path["features_path"])
+        del film
+        phase_probe_quality(dev, os.path.join(tmp, "probe"))
+        phase_downstream_scale(dev)
         phase_card_vs_cpu(dev, os.path.join(tmp, "cmp"))
 
     main_row = rows[0]          # the main path's (128, 384, 768) block
@@ -512,6 +819,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": EQ_SOURCE,
             "replaces": replaces, "also_replaces": also,
             "launches": main_path["launches"][kname],
+            "pipeline_launches": pipeline["launches"][kname],
             "max_abs_err": max(r[f"{kname}_max_abs_err"] for r in rows),
             "ms": main_row[f"{kname}_ms"],
             "plain_ms": main_row[f"{kname}_plain_ms"],

@@ -10,7 +10,7 @@ or a wrong shape, raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,14 +80,19 @@ def detector_state_dict(flax_vars_numpy: Mapping
                                 flax_vars_numpy)
 
 
-def facenet_state_dict(flax_vars_numpy: Mapping
+def facenet_state_dict(flax_vars_numpy: Mapping,
+                       embedding_dim: Optional[int] = None
                        ) -> Dict[str, torch.Tensor]:
     """State dict of a :class:`~facerec_torch.models.facenet.FaceNet`
-    of the tree's bottleneck size."""
+    of the tree's bottleneck size; with ``embedding_dim``, a tree of
+    another size raises (a checkpoint under the wrong name)."""
     from facerec_torch.models.facenet import FaceNet
 
     dim = int(np.asarray(
         flax_vars_numpy["params"]["Bottleneck"]["kernel"]).shape[-1])
+    if embedding_dim is not None and dim != embedding_dim:
+        raise ValueError(f"FaceNet weights embed to {dim} dims, "
+                         f"expected {embedding_dim}")
     return state_dict_from_flax(FaceNet(dim), flax_vars_numpy)
 
 

@@ -13,7 +13,7 @@ batch norm by hand in float32.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -189,15 +189,20 @@ def _nchw(crops: torch.Tensor) -> torch.Tensor:
 
 
 class FaceNetEmbedder:
-    """One checkpoint: (N, 160, 160, 3) crops → (N, dim) unit vectors."""
+    """One checkpoint: (N, 160, 160, 3) crops → (N, dim) unit vectors.
+    Weights from ``state_dict`` when given, else random from ``seed``."""
 
     def __init__(self, name: str, embedding_dim: int,
                  device: torch.device = torch.device("cpu"),
-                 seed: int = 0):
+                 seed: int = 0,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
         self.name = name
         self.embedding_dim = embedding_dim
         model = FaceNet(embedding_dim)
-        init_weights(model, torch.Generator().manual_seed(seed))
+        if state_dict is None:
+            init_weights(model, torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict)
         self.model = model.to(device).eval()
 
     @torch.no_grad()

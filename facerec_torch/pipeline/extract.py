@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import sys
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -37,12 +36,13 @@ from facerec_torch.contract import MovieDirs, records
 from facerec_torch.contract.naming import box_tag, movie_id_from_filename, \
     shard_file_name
 from facerec_torch.models.facenet import FaceNetEmbedder, PooledEmbedders
+from facerec_torch.models.load import load_facenet_embedders, warn_random_init
 from facerec_torch.ops import scene as scene_ops
 from facerec_torch.ops.boxes import round_clip_box
 from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline import faces as faces_mod
 from facerec_torch.runtime import checkpoint as ckpt
-from facerec_torch.runtime.device import resolve_device
+from facerec_torch.runtime.device import resolve_device, use_full_float32
 from facerec_torch.runtime.metrics import StageReport
 from facerec_torch.track import (TrackEmit, TrackerConfig,
                                  TrajectoryAssembler, init_tracker,
@@ -112,6 +112,13 @@ class EmbedderBank:
             name: FaceNetEmbedder(name, FACENET_DIMS[name], device=device,
                                   seed=i)
             for i, name in enumerate(FACENET_MODELS)})
+
+    @classmethod
+    def from_weights(cls, weights_dir: str,
+                     device: torch.device) -> "EmbedderBank":
+        """The four checkpoints from a weights directory
+        (:func:`facerec_torch.models.load.load_facenet_embedders`)."""
+        return cls(load_facenet_embedders(weights_dir, device=device))
 
     def dispatch_crop_embed(self, stack: torch.Tensor, frame_idx: np.ndarray,
                             crop_boxes: np.ndarray) -> Dict[str, np.ndarray]:
@@ -391,11 +398,6 @@ def make_jpeg_writer(cfg: ExtractConfig):
         return None
 
 
-def _warn_random_init(what: str, remedy: str) -> None:
-    print(f"WARNING: {what} is randomly initialised ({remedy}); its "
-          f"outputs are meaningless.", file=sys.stderr, flush=True)
-
-
 def build_detector(cfg: ExtractConfig, d_h: int, d_w: int,
                    detector_weights: Optional[str], device: torch.device):
     """The detector harness at native display resolution (unless the
@@ -413,8 +415,7 @@ def build_detector(cfg: ExtractConfig, d_h: int, d_w: int,
     if detector_weights is not None:
         return DetectorHarness.from_npz(detector_weights, device=device,
                                         **kwargs)
-    _warn_random_init("The face detector",
-                      "pass --detector-weights for trained weights")
+    warn_random_init("The face detector", "--detector-weights")
     return DetectorHarness.create(backbone_width=cfg.backbone_width,
                                   device=device, **kwargs)
 
@@ -422,10 +423,8 @@ def build_detector(cfg: ExtractConfig, d_h: int, d_w: int,
 def build_embedders(facenet_weights: Optional[str],
                     device: torch.device) -> EmbedderBank:
     if facenet_weights is not None:
-        raise NotImplementedError(
-            "FaceNet weight import (.pt/.h5/orbax) is not ported yet")
-    _warn_random_init("The FaceNet embedder bank",
-                      "FaceNet weight import is not ported yet")
+        return EmbedderBank.from_weights(facenet_weights, device)
+    warn_random_init("The FaceNet embedder bank", "--facenet-weights")
     return EmbedderBank.create_default(device)
 
 
@@ -459,11 +458,7 @@ def run_extract(
         raise NotImplementedError(
             f"wire_format={cfg.wire_format!r} is not ported; use 'rgb'")
     device = resolve_device(device)
-    # The JAX main path computes in float32.  cuDNN runs float32
-    # convolutions in TF32 by default, so both flags are turned off
-    # here, or the detector and FaceNet would not compute in float32.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_full_float32()
 
     name = file if isinstance(file, (str, os.PathLike)) else file.path
     display = load_aspect_ratio_csv(aspect_csv, os.path.basename(name))
@@ -626,6 +621,11 @@ def main(argv=None):
     parser.add_argument("--detector-weights", type=str, default=None,
                         help="single-file Flax .npz detector checkpoint; "
                              "random init + warning if omitted")
+    parser.add_argument("--facenet-weights", type=str, default=None,
+                        help="directory with the four FaceNet checkpoints "
+                             "(<name>.pt, <name>.h5, <name>.npz or "
+                             "<name>/model.h5); random init + warning "
+                             "if omitted")
     parser.add_argument("file")
     args = parser.parse_args(argv)
 
@@ -641,7 +641,8 @@ def main(argv=None):
         detector_long_side=args.detector_long_side or None,
         backbone_width=args.backbone_width)
     run_extract(args.file, cfg, args.out_path.rstrip("/"),
-                detector_weights=args.detector_weights, device=args.device)
+                detector_weights=args.detector_weights,
+                facenet_weights=args.facenet_weights, device=args.device)
     minutes, seconds = divmod(time.time() - start, 60)
     print(f"Completed in {int(minutes)} minutes, {int(seconds)} seconds.")
 

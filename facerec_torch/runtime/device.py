@@ -28,3 +28,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the host")
     return torch.device("cuda", dev.index if dev.index is not None else 0)
+
+
+def use_full_float32() -> None:
+    """Turn TF32 off for matrix products and cuDNN convolutions.
+
+    The JAX package computes the main path and the distance products of
+    cluster and classify in float32; on a card PyTorch would otherwise
+    round their inputs to TF32.  Each stage entry point calls this."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -126,3 +126,34 @@ def test_detect_block_card_equals_cpu(card):
         flags.append(f.cpu().numpy())
     np.testing.assert_array_equal(flags[0], flags[1])
     assert np.nonzero(flags[0])[0].tolist() == [9, 20]
+
+
+@pytest.mark.parametrize("n", [40, 300])
+def test_linkage_loop_card_equals_cpu_on_the_cards_matrix(card, n):
+    """The merge loop on the card records what the CPU loop records on
+    the card's own distance matrix, duplicates (exact ties) included."""
+    from facerec_torch.ops import linkage
+
+    rng = np.random.default_rng(n)
+    base = rng.normal(size=(n // 2, 16)).astype(np.float32)
+    x = np.concatenate([base, base[: n - n // 2]])
+    dist = linkage.pairwise_distances(torch.from_numpy(x).to(card))
+    got = linkage.complete_linkage_merges(dist).cpu()
+    want = linkage.complete_linkage_merges(dist.cpu())
+    assert torch.equal(got, want)
+
+
+def test_knn_selection_card_equals_cpu_on_the_cards_matrix(card):
+    """The stable sort on the card picks the CPU's neighbours, ties
+    (repeated training rows) to the lower index."""
+    from facerec_torch.ops import knn
+
+    rng = np.random.default_rng(0)
+    train = np.repeat(rng.normal(size=(30, 16)), 4, axis=0)
+    query = np.concatenate([train[::7], rng.normal(size=(200, 16))])
+    d2 = knn.squared_distances(
+        torch.from_numpy(query.astype(np.float32)).to(card),
+        torch.from_numpy(train.astype(np.float32)).to(card))
+    for k in (1, 4, 10):
+        assert torch.equal(knn.nearest(d2, k).cpu(),
+                           knn.nearest(d2.cpu(), k))
