@@ -8,8 +8,10 @@ stage end to end at full model width (detector w96 with the committed
 probe weights, four full FaceNets, 128-frame blocks) on an in-memory
 synthetic film, then the whole orchestrated pipeline (extract → merge →
 cluster → classify) on the same film, replays the probe-quality gates
-of ``tests/test_probe_quality.py``, times cluster and classify at the
-size a film gives them, and compares a card run with a CPU run of the
+of ``tests/test_probe_quality.py``, trains both models (one step card
+vs CPU, step times, then the selfcheck at the JAX package's pinned
+probe budget with its gates), times cluster and classify at the size a
+film gives them, and compares a card run with a CPU run of the
 pipeline.  Any failed check raises, so the script exits non-zero; it
 also exits non-zero without a card.  It prints JSON lines; the one
 before the last lists the kernels, the last is
@@ -258,6 +260,8 @@ def check_rgb(frames, lo, hi, gray, what):
     if bad:
         raise AssertionError(f"{bad} differ from the plain version on "
                              f"{what}")
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in (pairs["y"], pairs["hist"]))
 
 
 def phase_rgb(dev, rate):
@@ -272,9 +276,9 @@ def phase_rgb(dev, rate):
     for kind, gray in (("noisy", False), ("black", False), ("white", False),
                        ("dark", False), ("noisy", True)):
         frames = make_rgb(kind, MAIN_FRAMES, dev)
-        check_rgb(frames, lo, hi, gray, f"{kind} frames")
+        err = check_rgb(frames, lo, hi, gray, f"{kind} frames")
         row = {"frames": kind, "grayscale": gray, "shape": list(frames.shape),
-               "crop": [lo, hi], "equal": True,
+               "crop": [lo, hi], "equal": True, "hist256_rgb_max_abs_err": err,
                "hist256_rgb_ms": time_ms(
                    lambda: eqm.hist256_rgb(frames, lo, hi, gray)),
                "hist256_rgb_plain_ms": time_ms(
@@ -344,6 +348,13 @@ def reset_launches() -> None:
         eqm.launches[k] = 0
 
 
+def path_launches(n_blocks: int) -> dict:
+    """The launches a path over ``n_blocks`` frame blocks must count:
+    the scene leg takes hist256's RGB entry, then cum_lookup, once per
+    block; the plane entry never runs there."""
+    return {"hist256": 0, "hist256_rgb": n_blocks, "cum_lookup": n_blocks}
+
+
 def wall_ms(fn, runs: int = 3) -> float:
     """Median of ``runs`` synchronised wall times after one warm-up."""
     times = []
@@ -392,9 +403,9 @@ def phase_main_path(dev, out_root, film):
         dict(FACENET_DIMS))
     if n_feat == 0:
         raise AssertionError("no feature records on the main path")
-    if launches != {"hist256": n_blocks, "cum_lookup": n_blocks}:
-        raise AssertionError(f"kernel launches {launches}, "
-                             f"expected {n_blocks} each")
+    if launches != path_launches(n_blocks):
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{path_launches(n_blocks)}")
     with open(os.path.join(data, "run_report.json")) as f:
         report = json.load(f)[f"extract_{rng}"]
 
@@ -623,9 +634,9 @@ def phase_pipeline(dev, out_root, film, features_path):
     pattern = re.compile(re.escape(ACTOR_ID_PREFIX) + r"\d+$")
     if not keys or not all(pattern.match(k) for k in keys):
         raise AssertionError(f"predictions keyed {keys[:5]}")
-    if launches != {"hist256": n_blocks, "cum_lookup": n_blocks}:
-        raise AssertionError(f"kernel launches {launches}, "
-                             f"expected {n_blocks} each")
+    if launches != path_launches(n_blocks):
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{path_launches(n_blocks)}")
     with open(os.path.join(data, "run_report.json")) as f:
         report = json.load(f)
     result = {
@@ -673,6 +684,282 @@ def phase_probe_quality(dev, out_root):
         raise AssertionError(f"probe gates missed: {det}")
     if cuts != film.scene_cuts:
         raise AssertionError(f"probe cuts {cuts} != {film.scene_cuts}")
+    return result
+
+
+# card vs CPU, one training step (phase `train`)
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_REL = 1e-3        # max |Δg| over the leaf's max |g|
+STEP_GRAD_L2 = 1e-6         # ‖Δg‖ over ‖g‖, all leaves as one vector
+# The batch statistics, unwound from each BatchNorm's running ones as
+# (ra₁ − m·ra₀)/(1 − m), max |Δ| over max(1, the leaf's max |stat|).  In
+# float32 the unwinding alone costs up to 1/(1 − m) = 200 half-ulps of
+# ra₁ ≈ 1 on each device (≈ 1.2e-5 apart; an H100 against the CPU read
+# 1.2e-5 to 1.9e-5); a batch statistic off by 1e-2 reads 1e-2.
+STEP_STATS_REL = {"float32": 1e-4, "float64": 1e-9}
+# A leaf's max |g| is floored at this share of the model's largest |g|:
+# FaceNet's last Block8 bias has a gradient that vanishes exactly (the
+# train-mode bottleneck BN subtracts the batch mean of its shift), so
+# both devices hold only rounding there.
+STEP_GRAD_FLOOR = 1e-4
+# Adam's first step is lr·g/(|g| + ε) ≈ lr·sign(g): updated parameters
+# are compared where |g| ≥ 1e-2 of the leaf's max |g|.
+STEP_UPDATE_G_SHARE = 1e-2
+STEP_UPDATE_ATOL = 1e-6
+# the JAX package's pinned probe budget (docs/DESIGN.md "Pinned CI quality
+# budget") and the gates of tests/test_probe_quality.py and selfcheck
+SELFCHECK_ARGS = ["--film-width", "384", "--film-height", "288",
+                  "--detector-size", "384", "--identities", "3",
+                  "--film-frames", "180"]
+SELFCHECK_GATES = {"min_precision": 0.9, "min_recall": 0.8,
+                   "min_purity": 0.8, "min_accuracy": 0.9}
+
+
+def seeded_detector(width=96):
+    from facerec_torch.models.detector import FaceDetector
+    from facerec_torch.models.layers import init_weights
+
+    model = FaceDetector(backbone_width=width)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def train_cases(size=384, batch=16, n_ids=4, per_id=4, width=96, seed=0):
+    """name → (trainer factory on a device, one batch): the detector
+    from ``synth_batch`` at ``size``² and the 128-d FaceNet on
+    ``n_ids`` × ``per_id`` identity crops, both from seeded weights."""
+    from facerec_torch.train import DetectorTrainer
+    from facerec_torch.train.facenet_train import FaceNetTrainer
+    from facerec_torch.video.synth import identity_crops, synth_batch
+
+    rng = np.random.default_rng(seed)
+    det = synth_batch(rng, batch, size, size, face_size=(28.0, 44.0))
+    crops = np.concatenate([identity_crops(rng, a, per_id)
+                            for a in range(n_ids)])
+    labels = np.repeat(np.arange(n_ids, dtype=np.int32), per_id)
+    return {
+        "detector": (lambda d: DetectorTrainer(
+            seeded_detector(width), (size, size), learning_rate=1e-3,
+            device=d), det),
+        "facenet": (lambda d: FaceNetTrainer(
+            128, learning_rate=3e-4, seed=0, device=d), (crops, labels)),
+    }
+
+
+def step_state(make_trainer, batch, dev, dtype=torch.float32, tf32=False):
+    """One step from the seeded initial state on ``dev``: (loss, grads,
+    updated parameters, batch statistics), tensors as float64 on the
+    host.  The batch statistics are unwound from each BatchNorm's
+    running ones at its own momentum.  ``tf32`` lets cuDNN and cuBLAS
+    round to TF32 for this step, the fault the float32 limits guard."""
+    from facerec_torch.models.layers import BatchNorm
+    from facerec_torch.runtime.device import use_full_float32
+
+    trainer = make_trainer(dev)
+    trainer.model.to(dtype)
+    # a copy: on the CPU in float64 ``to`` would return the buffer itself
+    host = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+    bns = {k: m for k, m in trainer.model.named_modules()
+           if isinstance(m, BatchNorm)}
+    ra0 = {(k, s): host(getattr(m, s)) for k, m in bns.items()
+           for s in ("mean", "var")}
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        loss = float(trainer.step(*batch))
+    finally:
+        use_full_float32()
+    named = list(trainer.model.named_parameters())
+    stats = {f"{k}.{s}": (host(getattr(bns[k], s)) - bns[k].momentum * r)
+             / (1 - bns[k].momentum) for (k, s), r in ra0.items()}
+    return (loss, {k: host(p.grad) for k, p in named},
+            {k: host(p) for k, p in named}, stats)
+
+
+def compare_steps(got, want):
+    """``got``'s step against ``want``'s: the loss's relative error; the
+    worst leaf's max |Δg| over its max |g| (floored at STEP_GRAD_FLOOR
+    of the largest |g|) and ‖Δg‖ / ‖g‖ over all leaves; the batch
+    statistics' max |Δ| over max(1, the leaf's max |stat|); the updated
+    parameters' max |Δ| where |g| ≥ STEP_UPDATE_G_SHARE of the leaf's
+    max |g|."""
+    loss, grads, params, stats = got
+    w_loss, w_grads, w_params, w_stats = want
+    top = max(float(g.abs().max()) for g in w_grads.values())
+    rel, upd, n_upd, d2, g2 = {}, 0.0, 0, 0.0, 0.0
+    for k, w in w_grads.items():
+        scale = float(w.abs().max())
+        diff = grads[k] - w
+        rel[k] = float(diff.abs().max()) / max(scale, STEP_GRAD_FLOOR * top)
+        d2 += float((diff * diff).sum())
+        g2 += float((w * w).sum())
+        big = w.abs() >= STEP_UPDATE_G_SHARE * scale
+        if scale >= STEP_GRAD_FLOOR * top and big.any():
+            upd = max(upd, float((params[k] - w_params[k])[big].abs().max()))
+            n_upd += int(big.sum())
+    worst = max(rel, key=rel.get)
+    bstat = {k: float((stats[k] - s).abs().max())
+             / max(1.0, float(s.abs().max())) for k, s in w_stats.items()}
+    worst_stat = max(bstat, key=bstat.get)
+    return {"loss": loss, "loss_rel_err": abs(loss - w_loss) / abs(w_loss),
+            "grad_rel_err": rel[worst], "grad_worst_leaf": worst,
+            "grad_l2_rel_err": (d2 / g2) ** 0.5, "leaves": len(rel),
+            "batch_stats_err": bstat[worst_stat],
+            "batch_stats_worst": worst_stat,
+            "update_max_abs_err": upd, "updates_compared": n_upd}
+
+
+# Float32 gradients at full width are bound by rounding on any one
+# device: a float32 step on the CPU moves a leaf by up to 1.8e-2 of its
+# max |g| (detector) and 1.0e-1 (FaceNet) from its float64 step, where
+# pre-activations lie within rounding of a ReLU's kink, and moves the
+# whole gradient by 8.8e-4 and 1.9e-3 of ‖g‖ (PERF.md §6).  So the card's float32
+# gradients are held to the CPU's float64 ones within a factor of the
+# CPU's own float32 spread (never below the float64 limits): 2× for
+# the worst leaf, 5× for ‖Δg‖/‖g‖, where cuDNN's float32 algorithms
+# round up to 2.5× more than the CPU's (FaceNet on an H100).  The
+# float32 loss and batch statistics are held card vs CPU as in float64;
+# float32 updates, where sign flips move Adam's first step by 2·lr, are
+# reported.  A card step with TF32 on is the control: it must miss a
+# float32 limit (on an H100 it read 7× and 17× the ‖Δg‖/‖g‖ limit,
+# detector and FaceNet, while the detector's loss moved by 1.1e-7).
+F32_SPREAD = {"grad_rel_err": (2.0, STEP_GRAD_REL),
+              "grad_l2_rel_err": (5.0, STEP_GRAD_L2)}
+
+
+def step_parity_row(name, make, batch, dev):
+    """Card vs CPU, one step of one trainer in float32 and in float64,
+    the card's float32 step (and the TF32 control) against the CPU's
+    float64 one, and the CPU's float32 step against its float64 one
+    (the rounding spread); returns (row, failed checks)."""
+    cpu = torch.device("cpu")
+    f32, f64 = torch.float32, torch.float64
+    steps = {(where, dt): step_state(make, batch, d, dt)
+             for dt in (f32, f64) for where, d in (("card", dev),
+                                                   ("cpu", cpu))}
+    steps["card_tf32", f32] = step_state(make, batch, dev, f32, tf32=True)
+    ref = steps["cpu", f64]
+    row = {"float32": compare_steps(steps["card", f32], steps["cpu", f32]),
+           "float64": compare_steps(steps["card", f64], ref),
+           "card_float32_vs_float64": compare_steps(steps["card", f32], ref),
+           "cpu_float32_vs_float64": compare_steps(steps["cpu", f32], ref),
+           "tf32_control_vs_float64": compare_steps(steps["card_tf32", f32],
+                                                    ref)}
+    spread = row["cpu_float32_vs_float64"]
+    f32_limits = {k: max(factor * spread[k], floor)
+                  for k, (factor, floor) in F32_SPREAD.items()}
+    row["float32_limits"] = f32_limits
+    held = [("float64", "loss_rel_err", STEP_LOSS_RTOL),
+            ("float64", "batch_stats_err", STEP_STATS_REL["float64"]),
+            ("float64", "grad_rel_err", STEP_GRAD_REL),
+            ("float64", "grad_l2_rel_err", STEP_GRAD_L2),
+            ("float64", "update_max_abs_err", STEP_UPDATE_ATOL),
+            ("float32", "loss_rel_err", STEP_LOSS_RTOL),
+            ("float32", "batch_stats_err", STEP_STATS_REL["float32"])]
+    held += [("card_float32_vs_float64", k, v) for k, v in f32_limits.items()]
+    failed = [f"{name} {r} {k} {row[r][k]} > {v}" for r, k, v in held
+              if not row[r][k] <= v]
+    if row["float64"]["updates_compared"] == 0:
+        failed.append(f"{name}: no update compared")
+    control = row["tf32_control_vs_float64"]
+    row["tf32_control_caught"] = any(
+        not control[k] <= v for k, v in f32_limits.items())
+    if not row["tf32_control_caught"]:
+        failed.append(f"{name}: a TF32 step passed the float32 limits")
+    return row, failed
+
+
+def step_parity(dev):
+    """Card vs CPU, one step of each trainer at full width from one
+    initial state on one batch."""
+    out, failed = {}, []
+    for name, (make, batch) in train_cases().items():
+        out[name], bad = step_parity_row(name, make, batch, dev)
+        failed += bad
+    if failed:
+        emit({"phase": "train", "step_parity": out})
+        raise AssertionError(f"train steps: card and CPU differ: {failed}")
+    return out
+
+
+def train_timing(dev, batch=16):
+    """ms per step (wall, device, busy share) of each trainer on a
+    prepared batch, images per second and the peak of device memory;
+    the detector also at the selfcheck's default 512² input.  Then the
+    host's painting of one batch, and the detector's training loop as
+    the selfcheck runs it (paint, then step) over 10 steps."""
+    from facerec_torch.tools import selfcheck
+
+    cases = train_cases()
+    cases["detector_512"] = train_cases(size=512)["detector"]
+    out = {}
+    for name, (make, data) in cases.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make(dev)
+        row = timed(lambda: trainer.step(*data))
+        row["images_per_second"] = len(data[0]) / row["wall_ms"] * 1e3
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out[name] = row
+        del trainer
+
+    rng = np.random.default_rng(1)
+    size, film_hw, faces = (384, 384), (288, 384), (28.0, 44.0)
+    out["host_paint_ms"] = {
+        "deploy_style_batch": 1e3 * float(np.median([_seconds(
+            lambda: selfcheck.deploy_style_batch(rng, batch, size, film_hw,
+                                                 faces)) for _ in range(5)])),
+        "embedder_batch": 1e3 * float(np.median([_seconds(
+            lambda: selfcheck.embedder_batch(rng, 3)) for _ in range(5)]))}
+    make, _ = train_cases()["detector"]
+    trainer = make(dev)
+    content = selfcheck._content_hw(size, film_hw, batch)
+
+    def loop(steps=10):
+        for _ in range(steps):
+            trainer.step(*selfcheck.deploy_style_batch(
+                rng, batch, size, film_hw, faces), content_hw=content)
+    out["detector_loop_10_steps"] = timed(loop)
+    return out
+
+
+def _seconds(fn):
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
+def phase_train(dev, out_root):
+    """The trainers on the card at full width (detector w96, the full
+    128-d FaceNet, float32 with TF32 off): card vs CPU on one step, the
+    steps' times, then the JAX package's selfcheck at its pinned probe
+    budget — 200 detector and 150 embedder steps from scratch,
+    recalibration, extract → merge → cluster → classify on the card —
+    held to the selfcheck's gates."""
+    from facerec_torch.tools import selfcheck
+
+    parity = step_parity(dev)
+    timing = train_timing(dev)
+    args = selfcheck.parse_args(["--out", out_root, "--device", "cuda",
+                                 *SELFCHECK_ARGS])
+    reset_launches()
+    t0 = time.perf_counter()
+    report = selfcheck.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(eqm.launches)
+    failures = selfcheck.check_gates(report, **SELFCHECK_GATES)
+    blocks = -(-args.film_frames // ExtractConfig().block_frames)
+    result = {
+        "phase": "train", "step_parity": parity, "timing": timing,
+        "selfcheck": {k: v for k, v in report.items() if k != "predictions"},
+        "selfcheck_seconds": wall, "gates": SELFCHECK_GATES,
+        "gate_failures": failures, "launches": launches}
+    emit(result)
+    if failures:
+        raise AssertionError(f"selfcheck gates missed: {failures}")
+    if launches != path_launches(blocks):
+        raise AssertionError(f"selfcheck kernel launches {launches}, "
+                             f"expected {path_launches(blocks)}")
     return result
 
 
@@ -799,7 +1086,7 @@ def main() -> int:
 
     rows = phase_kernels(dev, rate)
     phase_skewed(dev, rate)
-    rgb = phase_rgb(dev, rate)[0]        # noisy frames at the main input
+    rgb_rows = phase_rgb(dev, rate)
     with tempfile.TemporaryDirectory() as tmp:
         film = smoke_film()
         main_path = phase_main_path(dev, os.path.join(tmp, "main"), film)
@@ -807,11 +1094,13 @@ def main() -> int:
                                   main_path["features_path"])
         del film
         phase_probe_quality(dev, os.path.join(tmp, "probe"))
+        train = phase_train(dev, os.path.join(tmp, "train"))
         phase_downstream_scale(dev)
         phase_card_vs_cpu(dev, os.path.join(tmp, "cmp"))
 
     main_row = rows[0]          # the main path's (128, 384, 768) block
     kernels = []
+    # hist256's plane entry counts 0 on every path (path_launches)
     for kname, replaces, also in (
             ("hist256", f"{EQ_TPU}:200", f"{EQ_TPU}:177"),
             ("cum_lookup", f"{EQ_TPU}:219", f"{EQ_TPU}:177")):
@@ -820,17 +1109,25 @@ def main() -> int:
             "replaces": replaces, "also_replaces": also,
             "launches": main_path["launches"][kname],
             "pipeline_launches": pipeline["launches"][kname],
+            "selfcheck_launches": train["launches"][kname],
             "max_abs_err": max(r[f"{kname}_max_abs_err"] for r in rows),
             "ms": main_row[f"{kname}_ms"],
             "plain_ms": main_row[f"{kname}_plain_ms"],
             "bound_ms": main_row[f"{kname}_bound_ms"], "bound_by": "bytes",
             "library_ms": main_row.get(f"{kname}_library_ms"),
             "shape": main_row["shape"]})
-    kernels[0].update({       # hist256's RGB entry point, the main path's
-        "rgb_ms": rgb["hist256_rgb_ms"],
-        "rgb_plain_ms": rgb["hist256_rgb_plain_ms"],
-        "rgb_bound_ms": rgb["hist256_rgb_bound_ms"],
-        "rgb_shape": rgb["shape"]})
+    rgb = rgb_rows[0]           # noisy frames at the main input
+    # the paths take hist256's RGB entry, counted under its own key
+    kernels.insert(1, {
+        "name": "hist256_rgb", "route": "cuda", "source": EQ_SOURCE,
+        "replaces": f"{EQ_TPU}:200", "also_replaces": f"{EQ_TPU}:177",
+        "launches": main_path["launches"]["hist256_rgb"],
+        "pipeline_launches": pipeline["launches"]["hist256_rgb"],
+        "selfcheck_launches": train["launches"]["hist256_rgb"],
+        "max_abs_err": max(r["hist256_rgb_max_abs_err"] for r in rgb_rows),
+        "ms": rgb["hist256_rgb_ms"], "plain_ms": rgb["hist256_rgb_plain_ms"],
+        "bound_ms": rgb["hist256_rgb_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": rgb["shape"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -96,6 +96,46 @@ def facenet_state_dict(flax_vars_numpy: Mapping,
     return state_dict_from_flax(FaceNet(dim), flax_vars_numpy)
 
 
+_FLAX_NAME = {v: k for k, v in _RENAME.items()}
+
+
+def flax_leaves(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """``module``'s state as the JAX package's flat checkpoint leaves,
+    the inverse of :func:`state_dict_from_flax`: ``/``-joined Flax paths
+    under ``params`` (parameters) or ``batch_stats`` (buffers), OIHW →
+    HWIO and (out, in) → (in, out) kernels."""
+    buffers = {k for k, _ in module.named_buffers()}
+    out = {}
+    for key, t in module.state_dict().items():
+        *mods, leaf = key.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)      # OIHW → HWIO
+            elif arr.ndim == 2:
+                arr = arr.T                          # (out, in) → (in, out)
+        collection = "batch_stats" if key in buffers else "params"
+        path = [collection] + [_FLAX_NAME.get(m, m) for m in mods] + [leaf]
+        out["/".join(path)] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_params_npz(path: str, module: torch.nn.Module, cast=None) -> None:
+    """Write ``module`` as ONE compressed single-file Flax checkpoint,
+    the layout of ``facerec_tpu/models/weights.py:save_params_npz``: it
+    loads in the JAX package's ``load_params_npz``, in
+    :meth:`~facerec_torch.models.detector.DetectorHarness.from_npz` and,
+    as ``<dir>/<name>.npz``, in
+    :func:`~facerec_torch.models.load.resolve_facenet_params`.  ``cast``
+    (e.g. ``np.float16``) casts the floating leaves."""
+    leaves = flax_leaves(module)
+    if cast is not None:
+        leaves = {k: v.astype(cast) if np.issubdtype(v.dtype, np.floating)
+                  else v for k, v in leaves.items()}
+    np.savez_compressed(path, **leaves)
+
+
 def load_flax_npz(path: str) -> Dict:
     """Read a single-file Flax checkpoint (the ``/``-joined flat
     ``.npz`` of ``facerec_tpu/models/weights.py:save_params_npz``) into

@@ -22,6 +22,7 @@ from torch import nn
 
 from facerec_torch.models.layers import Conv, ConvBN, init_weights
 from facerec_torch.ops.nms import nms
+from facerec_torch.runtime.device import resolve_device
 
 STRIDES = (8, 16, 32)
 ANCHOR_SIZES = ((16, 32), (64, 128), (256, 512))
@@ -192,6 +193,13 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+def normalize_images(images: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) pixels in [0, 255] → the detector's (B, 3, H, W)
+    input in ``dtype``: (x − 127.5) / 128, as the JAX package's."""
+    return ((images.to(dtype) - 127.5) / 128.0).permute(0, 3, 1, 2)
+
+
 @dataclasses.dataclass
 class DetectorHarness:
     """Pixels → padded detections: letterbox, forward, decode, filter,
@@ -208,20 +216,21 @@ class DetectorHarness:
     n_candidates: Optional[int] = None
 
     @classmethod
-    def create(cls, seed: int = 0, backbone_width: int = 96,
-               device: torch.device = torch.device("cpu"),
+    def create(cls, seed: int = 0, backbone_width: int = 96, device=None,
                **kwargs) -> "DetectorHarness":
-        """Random-initialised harness (weights from ``seed``)."""
+        """Random-initialised harness (weights from ``seed``), on the
+        card unless ``device="cpu"`` is asked for."""
         model = FaceDetector(backbone_width=backbone_width)
         init_weights(model, torch.Generator().manual_seed(seed))
-        return cls(model=model.to(device).eval(), **kwargs)
+        return cls(model=model.to(resolve_device(device)).eval(), **kwargs)
 
     @classmethod
-    def from_npz(cls, path: str, device: torch.device = torch.device("cpu"),
-                 **kwargs) -> "DetectorHarness":
+    def from_npz(cls, path: str, device=None, **kwargs) -> "DetectorHarness":
         """Harness with the weights of a single-file Flax checkpoint
-        (``facerec_tpu/models/weights.py:save_params_npz``); the width
-        comes from the checkpoint's stem."""
+        (``facerec_tpu/models/weights.py:save_params_npz`` or
+        :func:`facerec_torch.models.convert.save_params_npz`), on the
+        card unless ``device="cpu"`` is asked for; the width comes from
+        the checkpoint's stem."""
         from facerec_torch.models.convert import (detector_state_dict,
                                                   load_flax_npz)
 
@@ -232,7 +241,7 @@ class DetectorHarness:
         model = FaceDetector(
             backbone_width=state["stem.conv.weight"].shape[0])
         model.load_state_dict(state)
-        return cls(model=model.to(device).eval(), **kwargs)
+        return cls(model=model.to(resolve_device(device)).eval(), **kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -254,9 +263,9 @@ class DetectorHarness:
             x = F.interpolate(x, size=(sh, sw), mode="bilinear",
                               align_corners=False, antialias=True)
         x = F.pad(x, (0, iw - sw, 0, ih - sh))
-        x = (x - 127.5) / 128.0
 
-        raw = self.model(x)
+        # the padded batch viewed as NHWC pixels (no copy)
+        raw = self.model(normalize_images(x.permute(0, 2, 3, 1)))
         anchors = torch.from_numpy(anchor_centers(self.input_size)).to(
             frames.device)
         scores, boxes, ldm_raw = decode_scores_boxes(raw, anchors)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from facerec_torch.models.layers import BatchNorm, Conv, ConvBN, init_weights
+from facerec_torch.runtime.device import resolve_device
 
 
 class Block35(nn.Module):
@@ -169,9 +170,11 @@ class FaceNet(nn.Module):
         return (f - bn.mean) * torch.rsqrt(bn.var + 1e-3) + bn.bias
 
 
-def prewhiten(crops: torch.Tensor) -> torch.Tensor:
-    """Per-image standardization over all pixels and channels."""
-    x = crops.to(torch.float32)
+def prewhiten(crops: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-image standardization over all pixels and channels, in
+    ``dtype``."""
+    x = crops.to(dtype)
     dims = tuple(range(1, x.dim()))
     mean = x.mean(dim=dims, keepdim=True)
     std = x.std(dim=dims, keepdim=True, correction=0)
@@ -190,10 +193,10 @@ def _nchw(crops: torch.Tensor) -> torch.Tensor:
 
 class FaceNetEmbedder:
     """One checkpoint: (N, 160, 160, 3) crops → (N, dim) unit vectors.
-    Weights from ``state_dict`` when given, else random from ``seed``."""
+    Weights from ``state_dict`` when given, else random from ``seed``;
+    on the card unless ``device="cpu"`` is asked for."""
 
-    def __init__(self, name: str, embedding_dim: int,
-                 device: torch.device = torch.device("cpu"),
+    def __init__(self, name: str, embedding_dim: int, device=None,
                  seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
         self.name = name
@@ -203,7 +206,7 @@ class FaceNetEmbedder:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
-        self.model = model.to(device).eval()
+        self.model = model.to(resolve_device(device)).eval()
 
     @torch.no_grad()
     def __call__(self, crops: torch.Tensor) -> torch.Tensor:

@@ -52,11 +52,16 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm without scale, in Flax's order:
-    ``(x - mean) * rsqrt(var + eps) + bias`` over axis 1.
+    """Batch norm without scale over axis 1, Flax's ``nn.BatchNorm``
+    (``use_scale=False``): ``(x - mean) * rsqrt(var + eps) + bias``.
 
-    ``momentum`` is kept (not used at inference) so that checkpoints
-    round-trip with the JAX package's trainers."""
+    In eval mode ``mean``/``var`` are the running statistics.  In train
+    mode they are the batch's over every axis but 1, with Flax's fast
+    variance ``max(E[x²] − E[x]², 0)`` (the gradient flows through both
+    moments), and the running statistics move by Flax's rule
+    ``ra = m·ra + (1 − m)·batch`` with the biased variance — not
+    ``nn.BatchNorm2d``'s, whose momentum is the complement and whose
+    running variance is unbiased."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.99):
@@ -69,8 +74,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.var + self.eps)
-        return (x - self.mean.view(shape)) * mul.view(shape) \
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            mean = x.mean(dim=dims)
+            # torch.maximum splits the gradient at a tie, as jnp.maximum
+            var = torch.maximum((x * x).mean(dim=dims) - mean * mean,
+                                torch.zeros_like(mean))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps)
+        return (x - mean.view(shape)) * mul.view(shape) \
             + self.bias.view(shape)
 
 

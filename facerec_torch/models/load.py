@@ -30,6 +30,7 @@ from facerec_torch.config import EMB_NAME, FACENET_DIMS, FACENET_MODELS
 from facerec_torch.models import convert
 from facerec_torch.models import weights as W
 from facerec_torch.models.facenet import FaceNetEmbedder
+from facerec_torch.runtime.device import resolve_device
 
 
 class WeightsNotFoundError(FileNotFoundError):
@@ -76,11 +77,10 @@ def resolve_facenet_params(weights_dir: str, name: str) -> dict:
 
 def load_facenet_embedders(weights_dir: str,
                            names: Sequence[str] = FACENET_MODELS,
-                           device: torch.device = torch.device("cpu"),
-                           missing_ok: bool = True
+                           device=None, missing_ok: bool = True
                            ) -> Dict[str, FaceNetEmbedder]:
-    """name → FaceNetEmbedder on ``device`` with imported weights, for
-    every name.
+    """name → FaceNetEmbedder with imported weights, for every name, on
+    the card unless ``device="cpu"`` is asked for.
 
     A partial weights dir is usable: a missing name other than
     ``EMB_NAME`` gets random weights (seed = its position) with the
@@ -88,6 +88,7 @@ def load_facenet_embedders(weights_dir: str,
     resolves raises (a wrong path), a dir without ``EMB_NAME`` raises,
     and ``missing_ok=False`` raises on any missing name.
     """
+    device = resolve_device(device)
     found, missing = {}, []
     for name in names:
         try:

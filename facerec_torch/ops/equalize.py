@@ -35,9 +35,10 @@ BINS = 256
 _W = [float(torch.tensor(w, dtype=torch.float32))
       for w in (0.299, 0.587, 0.114)]
 
-# Launch counts of the kernels, one per launch; chip_smoke.py zeroes
-# them before the main path and reads them after.
-launches: Dict[str, int] = {"hist256": 0, "cum_lookup": 0}
+# Launch counts of the kernels, one per launch and one key per entry
+# point; chip_smoke.py zeroes them before the main path and reads them
+# after.
+launches: Dict[str, int] = {"hist256": 0, "hist256_rgb": 0, "cum_lookup": 0}
 
 _lib = None
 
@@ -217,7 +218,7 @@ def hist256_rgb(frames: torch.Tensor, lo: int, hi: int,
         stream = torch.cuda.current_stream(frames.device).cuda_stream
         _count(lib.fr_hist256_rgb(
             frames.data_ptr(), y.data_ptr(), hist.data_ptr(), b, h, w, lo,
-            hi, r, int(grayscale), stream), "hist256")
+            hi, r, int(grayscale), stream), "hist256_rgb")
     return y, hist
 
 

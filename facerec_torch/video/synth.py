@@ -7,7 +7,9 @@ detection stream.  The scene painter is split from the mp4 writer:
 host without OpenCV can run the pipeline on them), and
 :func:`make_clip` writes them to an mp4 with OpenCV, frame for frame
 the clip ``facerec_tpu.video.synth.make_clip`` writes for the same
-arguments.
+arguments.  :func:`synth_batch` and :func:`identity_crops` make the
+trainers' data, the same bytes as the JAX package's for one generator
+state, with numpy alone.
 """
 from __future__ import annotations
 
@@ -157,6 +159,105 @@ def make_clip(path: str, n_frames: int = 60, width: int = 192,
                        identities, path=path)
     write_mp4(clip, path)
     return clip
+
+
+def _linear_taps(src: int, dst: int, clamp: bool):
+    """OpenCV's INTER_LINEAR taps of one axis: (index0, index1, coef0,
+    coef1), coefficients in 11-bit fixed point.  The horizontal axis
+    clamps the position at the borders; the vertical one clamps only
+    the source rows, so a border row keeps two nonzero coefficients."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
+        np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= src - 1)
+        f[edge] = 0.0
+        s = np.clip(s, 0, src - 1)
+    # saturate_cast<short> rounds half to even, as np.rint
+    c0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int64)
+    c1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), c0, c1
+
+
+def resize_linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=INTER_LINEAR)``
+    of an (H, W, C) uint8 image, in numpy, byte for byte: OpenCV's fixed
+    point (11-bit coefficients; a horizontal pass into 22-bit sums, then
+    its SIMD vertical pass: each row's sum shifted right by 4, multiplied
+    by its coefficient keeping the high 16 bits, the two added and
+    rounded off by 2 bits).  The card's host has no OpenCV."""
+    h, w, _ = img.shape
+    x0, x1, a0, a1 = _linear_taps(w, width, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(h, height, clamp=False)
+    px = img.astype(np.int64)
+    rows = px[:, x0] * a0[None, :, None] + px[:, x1] * a1[None, :, None]
+    v = (((rows[y0] >> 4) * b0[:, None, None]) >> 16) \
+        + (((rows[y1] >> 4) * b1[:, None, None]) >> 16)
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def identity_crops(rng: np.random.Generator, identity: int, n: int,
+                   size: int = 160,
+                   native_face: Tuple[float, float] = (19.0, 30.0)
+                   ) -> np.ndarray:
+    """(n, size, size, 3) uint8 crops of one identity's face —
+    training/reference data for the embedder.
+
+    Faces are painted at their native film scale (a couple dozen
+    pixels) in a small crop window and bilinearly upscaled to the embed
+    size, as the pipeline's ``crop_resize`` feeds the embedder.  The
+    same bytes as ``facerec_tpu.video.synth.identity_crops`` for the same
+    generator state (its upscale is ``cv2.resize``; here
+    :func:`resize_linear_u8`)."""
+    out = np.zeros((n, size, size, 3), np.uint8)
+    for i in range(n):
+        w = rng.uniform(*native_face)
+        cs = int(round(w / rng.uniform(0.55, 0.9)))   # crop window side
+        canvas = rng.integers(20, 90, (cs, cs, 3)).astype(np.uint8)
+        h = min(w * rng.uniform(1.0, 1.25), cs - 2.0)
+        x = rng.uniform(0, cs - w - 1)
+        y = rng.uniform(0, cs - h - 1)
+        paint_face(canvas, np.array([x, y, x + w, y + h], np.float32),
+                   identity, shade=0)
+        out[i] = resize_linear_u8(canvas, size, size)
+    return out
+
+
+def synth_batch(rng: np.random.Generator, batch: int, width: int,
+                height: int, max_faces: int = 3,
+                face_size: Tuple[float, float] = (24.0, 64.0),
+                identities: int = 0, identity_base: int = 0):
+    """Random training frames of "face" rectangles over noise
+    backgrounds — the face model :func:`make_frames` paints, batched
+    with padded ground truth for the detector trainer.  With
+    ``identities=K`` faces are painted in random identity styles.  The
+    same bytes as ``facerec_tpu.video.synth.synth_batch`` for the same
+    generator state.
+
+    Returns (frames (B,H,W,3) uint8, boxes (B,F,4) f32, valid (B,F)
+    bool, landmarks (B,F,5,2) f32).
+    """
+    frames = rng.integers(20, 90, (batch, height, width, 3)).astype(np.uint8)
+    boxes = np.zeros((batch, max_faces, 4), np.float32)
+    valid = np.zeros((batch, max_faces), bool)
+    ldm = np.zeros((batch, max_faces, 5, 2), np.float32)
+    for i in range(batch):
+        for j in range(int(rng.integers(1, max_faces + 1))):
+            w = rng.uniform(*face_size)
+            h = min(w * rng.uniform(1.1, 1.3), height - 5)
+            x = rng.uniform(2, width - w - 2)
+            y = rng.uniform(2, height - h - 2)
+            box = np.array([x, y, x + w, y + h], np.float32)
+            ident = (identity_base + int(rng.integers(0, identities))
+                     if identities else None)
+            paint_face(frames[i], box, ident,
+                       shade=int(rng.integers(170, 240)))
+            boxes[i, j] = box
+            valid[i, j] = True
+            ldm[i, j] = _landmarks_for(box)
+    return frames, boxes, valid, ldm
 
 
 class ScriptedDetector:

@@ -60,15 +60,16 @@ def _rgb(kind, shape, seed=0):
 ])
 def test_rgb_entry_bit_equal_to_plain(card, shape, crop, kind, grayscale):
     """hist256 from uint8 frames, and both entry points on its plane,
-    bit-equal to the plain versions; one launch counted per call.  The
-    white frames in grayscale are the constant bin-255 case."""
+    bit-equal to the plain versions; one launch counted per call, under
+    the entry point's own key.  The white frames in grayscale are the
+    constant bin-255 case."""
     frames = torch.from_numpy(_rgb(kind, shape)).to(card)
     lo, hi = scene.crop_bounds(shape[1], shape[2], crop)
-    before = eqm.launches["hist256"]
+    before = dict(eqm.launches)
     y, hist = eqm.hist256_rgb(frames, lo, hi, grayscale)
-    assert eqm.launches["hist256"] == before + 1
+    assert eqm.launches == {**before, "hist256_rgb": before["hist256_rgb"] + 1}
     hist_plane = eqm.hist256(y)
-    assert eqm.launches["hist256"] == before + 2
+    assert eqm.launches["hist256"] == before["hist256"] + 1
     eq, cum = eqm.cum_lookup(y, hist)
     y_p, hist_p = eqm.hist256_rgb_plain(frames, lo, hi, grayscale)
     eq_p, cum_p = eqm.cum_lookup_plain(y_p, hist_p)
@@ -157,3 +158,16 @@ def test_knn_selection_card_equals_cpu_on_the_cards_matrix(card):
     for k in (1, 4, 10):
         assert torch.equal(knn.nearest(d2, k).cpu(),
                            knn.nearest(d2.cpu(), k))
+
+
+def test_train_step_card_equals_cpu(card):
+    """One detector step (width 16, 64², batch 4) and one FaceNet step (2
+    identities × 2 crops) from one initial state: the card's loss,
+    gradients, batch statistics and Adam update against the CPU's, at
+    the tolerances and dtypes of ``chip_smoke.py``'s ``train`` phase."""
+    import chip_smoke as cs
+
+    cases = cs.train_cases(size=64, batch=4, n_ids=2, per_id=2, width=16)
+    for name, (make, batch) in cases.items():
+        row, failed = cs.step_parity_row(name, make, batch, card)
+        assert not failed, (failed, row)

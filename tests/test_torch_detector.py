@@ -141,7 +141,8 @@ def test_anchor_and_input_size_helpers_match_jax():
 
 def test_probe_checkpoint_restores_every_key():
     tree = convert.load_flax_npz(PROBE)
-    h = DetectorHarness.from_npz(PROBE, input_size=(64, 64))
+    h = DetectorHarness.from_npz(PROBE, device="cpu",
+                                 input_size=(64, 64))
     assert h.model.backbone_width == 96
     state = h.model.state_dict()
     flat = convert.flatten(tree)

@@ -37,7 +37,7 @@ def test_embeddings_match_jax(crops):
     jax_emb.variables = jax.tree.map(jnp.asarray, variables)
     want = np.asarray(jax_emb(jnp.asarray(crops)))
 
-    port = FaceNetEmbedder("20170512-110547", 128)
+    port = FaceNetEmbedder("20170512-110547", 128, device="cpu")
     port.model.load_state_dict(convert.facenet_state_dict(variables))
     got = port(torch.from_numpy(crops)).numpy()
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-6)
@@ -47,8 +47,8 @@ def test_embeddings_match_jax(crops):
 
 
 def test_pooled_bank_equals_individual_embedders(crops):
-    bank = [FaceNetEmbedder("a", 512, seed=0),
-            FaceNetEmbedder("b", 128, seed=1)]
+    bank = [FaceNetEmbedder("a", 512, "cpu", seed=0),
+            FaceNetEmbedder("b", 128, "cpu", seed=1)]
     x = torch.from_numpy(crops)
     pooled = PooledEmbedders(bank)(x)
     assert [p.shape[1] for p in pooled] == [512, 128]
@@ -60,9 +60,9 @@ def test_pooled_bank_equals_individual_embedders(crops):
 
 
 def test_seeded_init_is_deterministic(crops):
-    a = FaceNetEmbedder("a", 128, seed=7).model.state_dict()
-    b = FaceNetEmbedder("a", 128, seed=7).model.state_dict()
-    c = FaceNetEmbedder("a", 128, seed=8).model.state_dict()
+    a = FaceNetEmbedder("a", 128, "cpu", seed=7).model.state_dict()
+    b = FaceNetEmbedder("a", 128, "cpu", seed=7).model.state_dict()
+    c = FaceNetEmbedder("a", 128, "cpu", seed=8).model.state_dict()
     key = "Conv2d_1a_3x3.conv.weight"
     assert torch.equal(a[key], b[key]) and not torch.equal(a[key], c[key])
 

@@ -133,7 +133,7 @@ def test_wrong_width_under_a_name_raises(weights, tmp_path):
                 tmp_path / f"{FACENET_MODELS[0]}.pt")
     shutil.copy(os.path.join(d, f"{EMB_NAME}.pt"), tmp_path)
     with pytest.raises(ValueError, match="expected 512"):
-        L.load_facenet_embedders(str(tmp_path))
+        L.load_facenet_embedders(str(tmp_path), device="cpu")
 
 
 def test_missing_names_empty_dirs_and_required_weights(weights, tmp_path,
@@ -148,33 +148,36 @@ def test_missing_names_empty_dirs_and_required_weights(weights, tmp_path,
     no_emb.mkdir()
     shutil.copy(os.path.join(d, f"{OTHER_128}.pt"), no_emb)
     with pytest.raises(L.WeightsNotFoundError, match=EMB_NAME):
-        L.load_facenet_embedders(str(no_emb))
+        L.load_facenet_embedders(str(no_emb), device="cpu")
     with pytest.raises(L.WeightsNotFoundError, match="wrong"):
-        L.load_facenet_embedders(str(tmp_path / "nothing_here"))
+        L.load_facenet_embedders(str(tmp_path / "nothing_here"),
+                                  device="cpu")
 
     only_emb = tmp_path / "only_emb"
     only_emb.mkdir()
     shutil.copy(os.path.join(d, f"{EMB_NAME}.pt"), only_emb)
     monkeypatch.setattr(L, "_WARNED", set())
-    bank = L.load_facenet_embedders(str(only_emb))
+    bank = L.load_facenet_embedders(str(only_emb), device="cpu")
     assert list(bank) == list(FACENET_MODELS)
     warned = capsys.readouterr().out
     assert all(n in warned for n in FACENET_MODELS if n != EMB_NAME)
     assert_state_equal(bank[EMB_NAME].model.state_dict(),
                        convert.facenet_state_dict(want[EMB_NAME]))
     with pytest.raises(L.WeightsNotFoundError):
-        L.load_facenet_embedders(str(only_emb), missing_ok=False)
+        L.load_facenet_embedders(str(only_emb), device="cpu",
+                                  missing_ok=False)
     monkeypatch.setenv("FACEREC_REQUIRE_WEIGHTS", "1")
     monkeypatch.setattr(L, "_WARNED", set())
     with pytest.raises(RuntimeError, match="RANDOM"):
-        L.load_facenet_embedders(str(only_emb))
+        L.load_facenet_embedders(str(only_emb), device="cpu")
 
 
 def test_loaded_net_embeds_as_the_jax_embedder(weights):
     d, _, want = weights
     crops = np.random.default_rng(0).integers(
         0, 256, (2, 160, 160, 3)).astype(np.uint8)
-    (emb,) = L.load_facenet_embedders(d, names=(EMB_NAME,)).values()
+    (emb,) = L.load_facenet_embedders(d, names=(EMB_NAME,),
+                                      device="cpu").values()
     got = emb(torch.from_numpy(crops)).numpy()
     ref = np.asarray(JaxEmbedder(EMB_NAME, 128, params=want[EMB_NAME])(
         jnp.asarray(crops)))
@@ -194,7 +197,7 @@ def test_run_extract_embeds_with_the_weights_dir(weights, tmp_path,
     cfg = ExtractConfig(block_frames=16, max_detections=8, max_tracks=16,
                         save_images=False, resume=False)
     direct = extract.EmbedderBank({EMB_NAME: FaceNetEmbedder(
-        EMB_NAME, 128, state_dict=convert.facenet_state_dict(
+        EMB_NAME, 128, "cpu", state_dict=convert.facenet_state_dict(
             want[EMB_NAME]))})
     feats = {}
     for key, kw in (("dir", dict(facenet_weights=str(only_emb))),
