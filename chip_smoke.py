@@ -12,13 +12,16 @@ of ``tests/test_probe_quality.py``, trains both models (one step card
 vs CPU, step times, then the selfcheck at the JAX package's pinned
 probe budget with its gates), times cluster and classify at the size a
 film gives them, and compares a card run with a CPU run of the
-pipeline.  Any failed check raises, so the script exits non-zero; it
+pipeline.  It also runs extract on every wire format and fetch grouping
+(``wire``: byte-identical files, the per-block wire costs), the QA and
+parity tools (``tools``), and a 10,000-frame soak (``soak``).  Any failed check raises, so the script exits non-zero; it
 also exits non-zero without a card.  It prints JSON lines; the one
 before the last lists the kernels, the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -480,32 +483,15 @@ class StubBank(EmbedderBank):
         return out
 
 
-def phase_card_vs_cpu(dev, out_root):
-    """Phase 4: extract → merge → cluster → classify on the card and on
-    the CPU; every file identical, the embeddings within 1e-5."""
-    film = make_frames(64, width=384, height=288, seed=1, cuts=(30,),
-                       path="778-Card_Cpu.mp4")
-    cfg = ExtractConfig(block_frames=32, save_images=False, resume=False)
-    # imported here, as in the phases below, so that
-    # scripts/equalize_ab.sh can load this file over an older package
-    from facerec_torch.pipeline import classify as classify_mod
-    from facerec_torch.pipeline import merge as merge_mod
-    from facerec_torch.pipeline.cluster import run_cluster
-
-    runs = {"card": dev, "cpu": torch.device("cpu")}
-    outs = {}
-    for label, d in runs.items():
-        root = os.path.join(out_root, label)
-        run_extract(film, cfg, root, detector=ScriptedDetector(film),
-                    embedders=StubBank(), device=d)
-        outs[label] = os.path.join(root, "778-data")
-
+def compare_card_cpu(roots):
+    """Trajectories and scene changes of a card run and a CPU run
+    identical, feature records identical but for the embeddings (within
+    1e-5); returns (records, max embedding error)."""
     def read(kind):
-        sub = os.path.join(outs["card"], kind)
-        names = sorted(os.listdir(sub))
+        sub = os.path.join(roots["card"], kind)
         return [(n, open(os.path.join(sub, n), "rb").read(),
-                 open(os.path.join(outs["cpu"], kind, n), "rb").read())
-                for n in names]
+                 open(os.path.join(roots["cpu"], kind, n), "rb").read())
+                for n in sorted(os.listdir(sub))]
 
     for kind in ("trajectories", "scene_changes"):
         for name, a, b in read(kind):
@@ -527,6 +513,36 @@ def phase_card_vs_cpu(dev, out_root):
             n += 1
     if n == 0 or max_err > 1e-5:
         raise AssertionError(f"features: {n} records, max err {max_err}")
+    return n, max_err
+
+
+def phase_card_vs_cpu(dev, out_root):
+    """Phase 4: extract → merge → cluster → classify on the card and on
+    the CPU; every file identical, the embeddings within 1e-5.  Extract
+    also on the yuv420-delta wire, card against CPU alike."""
+    film = make_frames(64, width=384, height=288, seed=1, cuts=(30,),
+                       path="778-Card_Cpu.mp4")
+    cfg = ExtractConfig(block_frames=32, save_images=False, resume=False)
+    # imported here, as in the phases below, so that
+    # scripts/equalize_ab.sh can load this file over an older package
+    from facerec_torch.pipeline import classify as classify_mod
+    from facerec_torch.pipeline import merge as merge_mod
+    from facerec_torch.pipeline.cluster import run_cluster
+
+    runs = {"card": dev, "cpu": torch.device("cpu")}
+    outs, wire_errs = {}, {}
+    for wire in ("rgb", "yuv420-delta"):
+        roots = {}
+        for label, d in runs.items():
+            root = os.path.join(out_root, wire, label)
+            run_extract(film, dataclasses.replace(cfg, wire_format=wire),
+                        root, detector=ScriptedDetector(film),
+                        embedders=StubBank(), device=d)
+            roots[label] = os.path.join(root, "778-data")
+        wire_errs[wire] = compare_card_cpu(roots)
+        if wire == "rgb":
+            outs = roots
+    n, max_err = wire_errs["rgb"]
 
     # merge → cluster → classify on each device, one actor zip for both
     zpath = os.path.join(out_root, "actor-images.zip")
@@ -553,6 +569,11 @@ def phase_card_vs_cpu(dev, out_root):
         raise AssertionError("card_vs_cpu: no predictions")
     result = {"phase": "card_vs_cpu", "feature_records": n,
               "embedding_max_abs_err": max_err,
+              "yuv420_delta": {"feature_records": wire_errs["yuv420-delta"][0],
+                               "embedding_max_abs_err":
+                                   wire_errs["yuv420-delta"][1],
+                               "trajectories_identical": True,
+                               "scene_changes_identical": True},
               "trajectories_identical": True,
               "scene_changes_identical": True,
               "merged_trajectories_identical": True,
@@ -981,7 +1002,7 @@ def timed(fn):
             "profiled_wall_ms": prof_ms, "busy_share": dev_ms / ms}
 
 
-def phase_downstream_scale(dev, sizes=(1000, 4000), n_queries=40_000,
+def phase_downstream_scale(dev, sizes=(1000, 2000), n_queries=40_000,
                            n_actors=40):
     """Cluster and classify at the size a film gives them: N trajectory
     means from 60 identities, and a 100-minute film's face queries
@@ -1067,6 +1088,297 @@ def phase_downstream_scale(dev, sizes=(1000, 4000), n_queries=40_000,
     return out
 
 
+# the wire phase's runs: (name, wire format, fetch group)
+WIRE_RUNS = [("rgb_g1", "rgb", 1), ("rgb_g4", "rgb", 4),
+             ("rgb-delta_g4", "rgb-delta", 4),
+             ("yuv420-delta_g1", "yuv420-delta", 1),
+             ("yuv420-delta_g4", "yuv420-delta", 4)]
+
+
+def read_outputs(root, movie, subs=("trajectories", "scene_changes",
+                                    "features")):
+    data = os.path.join(root, f"{movie}-data")
+    return {sub: {n: open(os.path.join(data, sub, n), "rb").read()
+                  for n in sorted(os.listdir(os.path.join(data, sub)))}
+            for sub in subs}
+
+
+def face_pairs(features):
+    """(frame, box) of every feature record of a run."""
+    (data,) = features.values()
+    return [(r["frame"], r["box"])
+            for r in map(json.loads, data.decode().splitlines())]
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median wall ms of a host function after one warm-up."""
+    fn()
+    return 1e3 * float(np.median([_seconds(fn) for _ in range(runs)]))
+
+
+def wire_costs(dev, film, block_frames=128):
+    """Per 128-frame block of each wire: the bytes that cross the link,
+    the host encode (the reader's RGB → I420 for yuv420-delta, then the
+    delta), the upload (pageable host memory) and the device decode."""
+    from facerec_torch.ops import yuv
+
+    h = film.height
+    frames = np.ascontiguousarray(film.frames[:block_frames])
+    i420 = yuv.rgb_to_i420(frames)
+    out = {}
+    for wire in ("rgb", "rgb-delta", "yuv420-delta"):
+        src = i420 if wire == "yuv420-delta" else frames
+        up = yuv.encode_delta(src) if wire != "rgb" else src
+        row = {"bytes_per_block": int(up.nbytes),
+               "encode_path": yuv.encode_path() if wire != "rgb" else None,
+               "host_encode_ms": (host_ms(lambda: yuv.encode_delta(src))
+                                  if wire != "rgb" else 0.0),
+               "upload_ms": wall_ms(lambda: torch.from_numpy(up).to(dev))}
+        if wire == "yuv420-delta":
+            row["host_rgb_to_i420_ms"] = host_ms(
+                lambda: yuv.rgb_to_i420(frames))
+        dev_up = torch.from_numpy(up).to(dev)
+        if wire == "rgb-delta":
+            row["decode_device_ms"] = time_ms(
+                lambda: yuv.delta_decode(dev_up), reps=3, trials=3)
+        elif wire == "yuv420-delta":
+            row["decode_device_ms"] = time_ms(
+                lambda: yuv.delta_i420_to_rgb(dev_up, h), reps=3, trials=3)
+            want = yuv.delta_i420_to_rgb(torch.from_numpy(up[:8]), h)
+            got = yuv.delta_i420_to_rgb(dev_up[:8], h).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError("delta_i420_to_rgb: card != CPU")
+        else:
+            row["decode_device_ms"] = 0.0
+        out[wire] = row
+    return out
+
+
+def phase_wire(dev, out_root, film, card):
+    """The wires and fetch groups at full width on phase 3's film (the
+    probe detector, four FaceNets, 128-frame blocks): rgb g1/g4,
+    rgb-delta g4, yuv420-delta g1/g4.  rgb g4 and rgb-delta g4 must
+    equal rgb g1 byte for byte, yuv420-delta g4 its g1, with cuts
+    exact; with a scripted detector yuv420-delta's trajectories and cuts
+    equal rgb's and its features cover the same faces."""
+    from facerec_torch.tools.embedding_eval import evaluate_embedding_parity
+    from facerec_torch.tools.soak import StubBank as DeferredStub
+
+    n_blocks = -(-film.n_frames // ExtractConfig.block_frames)
+    detector, embedders = full_width_models(
+        dev, film, ExtractConfig(face_threshold=0.9))
+    runs, outs = {}, {}
+    for name, wire, group in WIRE_RUNS:
+        cfg = ExtractConfig(face_threshold=0.9, save_images=False,
+                            resume=False, wire_format=wire,
+                            fetch_every_blocks=group)
+        root = os.path.join(out_root, name)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        run_extract(film, cfg, root, detector=detector, embedders=embedders,
+                    device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(eqm.launches)
+        if launches != path_launches(n_blocks):
+            raise AssertionError(f"wire {name}: kernel launches {launches}")
+        with open(os.path.join(root, "777-data", "run_report.json")) as f:
+            rep = json.load(f)[f"extract_0-{film.n_frames}"]["counters"]
+        outs[name] = read_outputs(root, 777)
+        runs[name] = {
+            "wire_format": rep["wire_format"], "fetch_group":
+                rep["fetch_group"], "encode_path": rep["encode_path"],
+            "wall_seconds": wall, "frames_per_second": film.n_frames / wall,
+            "launches": launches,
+            "per_block_ms": {k[:-len("_seconds")]: 1e3 * v / rep["blocks"]
+                             for k, v in rep.items()
+                             if k.endswith("_seconds")},
+            "feature_records": len(face_pairs(outs[name]["features"]))}
+    held = {"rgb_g4": "rgb_g1", "rgb-delta_g4": "rgb_g1",
+            "yuv420-delta_g4": "yuv420-delta_g1"}
+    for got, want in held.items():
+        for sub, files in outs[want].items():
+            if outs[got][sub] != files:
+                raise AssertionError(f"wire {got} {sub} differ from {want}")
+    (sc,) = outs["yuv420-delta_g1"]["scene_changes"].values()
+    if json.loads(sc)["frame_indices"] != list(film.scene_cuts):
+        raise AssertionError(f"yuv420-delta cuts {sc}")
+    if not face_pairs(outs["rgb_g1"]["features"]):
+        raise AssertionError("wire: no feature records")
+    parity = evaluate_embedding_parity(
+        *(os.path.join(out_root, k, "777-data", "features",
+                       f"features_777_0-{film.n_frames}.jsonl")
+          for k in ("rgb_g1", "yuv420-delta_g1")), max_p95=1.0)
+    emb = {k: {"n": v.get("n"), "p95_cos_dist": v.get("p95_cos_dist"),
+               "max_cos_dist": v.get("max_cos_dist")}
+           for k, v in parity["checkpoints"].items()}
+
+    scripted = {}
+    for wire in ("rgb", "yuv420-delta"):
+        root = os.path.join(out_root, f"scripted_{wire}")
+        run_extract(film, ExtractConfig(save_images=False, resume=False,
+                                        wire_format=wire), root,
+                    detector=ScriptedDetector(film),
+                    embedders=DeferredStub(device=dev), device=dev)
+        scripted[wire] = read_outputs(root, 777)
+    for sub in ("trajectories", "scene_changes"):
+        if scripted["rgb"][sub] != scripted["yuv420-delta"][sub]:
+            raise AssertionError(f"scripted yuv420-delta {sub} != rgb")
+    pairs = [face_pairs(scripted[w]["features"])
+             for w in ("rgb", "yuv420-delta")]
+    if not pairs[0] or pairs[0] != pairs[1]:
+        raise AssertionError("scripted yuv420-delta features cover other "
+                             "faces than rgb")
+    result = {"phase": "wire", "card": card, "frames": film.n_frames,
+              "blocks": n_blocks, "runs": runs,
+              "identical": {f"{a}=={b}": True for a, b in held.items()},
+              "yuv420_delta_cuts": film.scene_cuts,
+              "embedding_eval_rgb_vs_yuv420_delta": {
+                  "match_rate": parity["match_rate"],
+                  "n_matched": parity["n_matched"], "checkpoints": emb},
+              "scripted_yuv420_delta_equals_rgb": True,
+              "scripted_face_pairs": len(pairs[0]),
+              "per_block": wire_costs(dev, film)}
+    emit(result)
+    return result
+
+
+def soak_child(out_root: str, n_frames: int) -> None:
+    """The soak in a process of its own (started by :func:`phase_soak`,
+    so that its RSS is the soak's and not the earlier phases'): paint
+    the film, run it, write the report with the scene kernels' launches
+    to ``<out_root>/soak_child.json``."""
+    from facerec_torch.tools.soak import run_soak, synth_film
+
+    _build.build_all()
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    film = synth_film(out_root, n_frames, 256, 192, in_memory=True)
+    paint = time.perf_counter() - t0
+    reset_launches()
+    report = run_soak(out_root, block_frames=128, checkpoint_every=16,
+                      fetch_every=8, wire_format="yuv420-delta",
+                      save_images=False, film=film, device=dev)
+    report.update(launches=dict(eqm.launches), paint_seconds=paint,
+                  film_bytes=int(film.frames.nbytes))
+    with open(os.path.join(out_root, "soak_child.json"), "w") as f:
+        json.dump(report, f)
+
+
+def phase_soak(dev, out_root, card, n_frames=10_000):
+    """The soak on the card, in a fresh process: a 256×192 film of
+    ``n_frames`` painted in memory (the card's host has no codec),
+    yuv420-delta, blocks of 128, fetch 8, checkpoint 16, the stub bank
+    and the scripted detector, no images; its gates."""
+    os.makedirs(out_root, exist_ok=True)
+    code = f"import chip_smoke as c; c.soak_child({out_root!r}, {n_frames})"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"soak process failed:\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out_root, "soak_child.json")) as f:
+        report = json.load(f)
+    result = {"phase": "soak", "card": card, **report}
+    emit(result)
+    if not report["pass"]:
+        raise AssertionError(f"soak gates: {report['failures']}")
+    if report["ckpt_samples"] < 2:
+        raise AssertionError("soak: fewer than 2 checkpoint samples")
+    if report["launches"] != path_launches(-(-n_frames // 128)):
+        raise AssertionError(f"soak kernel launches {report['launches']}")
+    return result
+
+
+def phase_tools(dev, out_root, pipeline_data, probe, card):
+    """The QA and parity tools on the card's host: detector_eval on the
+    probe_quality film, the SVM card vs CPU, and subtitles, twins and
+    boxdata on the pipeline phase's data dir."""
+    import contextlib
+    import hashlib
+    import io
+
+    from facerec_torch.ops.svm import decision_function, train_linear_svm
+    from facerec_torch.tools import boxdata, subtitles, twins
+    from facerec_torch.tools.detector_eval import (evaluate_detections,
+                                                   harness_predictions)
+
+    film = make_frames(180, width=384, height=288, seed=0, cuts=(60, 120),
+                       n_faces=2, identities=3, path="777-Probe_Film.mp4")
+    harness = DetectorHarness.from_npz(
+        PROBE, device=dev, input_size=(384, 384), max_detections=16,
+        score_threshold=0.9, min_face_size=20)
+    t0 = time.perf_counter()
+    preds = harness_predictions(harness, enumerate(film.frames))
+    det_s = time.perf_counter() - t0
+    truth = {f: [b.tolist() for b, _ in v] for f, v in film.truth.items()}
+    det = evaluate_detections(preds, truth)
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(3, 8)) * 4
+    x = np.concatenate([centers[i] + rng.normal(size=(30, 8)) * 0.3
+                        for i in range(3)]).astype(np.float32)
+    y = np.repeat([5, 9, 2], 30)
+    fits = {d: train_linear_svm(x, y, device=d) for d in (dev, "cpu")}
+    (w, b, cls), (w_c, b_c, cls_c) = fits[dev], fits["cpu"]
+    labels = [cls[decision_function(x, ww, bb, device=d).argmax(1)]
+              for (ww, bb, d) in ((w, b, dev), (w_c, b_c, "cpu"))]
+    svm = {"w_max_abs_err": float(np.abs(w - w_c).max()),
+           "b_max_abs_err": float(np.abs(b - b_c).max()),
+           "labels_equal": bool(np.array_equal(*labels)),
+           "accuracy": float((labels[0] == y).mean()),
+           "card_ms": 1e3 * _seconds(lambda: train_linear_svm(x, y,
+                                                              device=dev))}
+    if (not np.array_equal(cls, cls_c) or not svm["labels_equal"]
+            or svm["w_max_abs_err"] > 1e-6 or svm["b_max_abs_err"] > 1e-6):
+        raise AssertionError(f"SVM card vs CPU: {svm}")
+
+    # the ffprobe-style metadata and actors.csv the QA tools read
+    os.makedirs(out_root, exist_ok=True)
+    meta = os.path.join(out_root, "metadata.json")
+    with open(meta, "w") as f:
+        json.dump({"format": {"filename": "777-Smoke_Film.mp4"},
+                   "streams": [{"codec_type": "video", "width": 768,
+                                "height": 576, "sample_aspect_ratio": "1:1",
+                                "avg_frame_rate": "25/1"}]}, f)
+    actors = os.path.join(out_root, "actors.csv")
+    with open(actors, "w") as f:
+        f.write("id,name\n" + "".join(f"{500 + a},A{a}\n"
+                                       for a in range(3)))
+    ass = os.path.join(out_root, "film.ass")
+    outputs = {}
+    for name, fn in (
+            ("subtitles", lambda: subtitles.main(
+                ["--path", pipeline_data, "--metadata", meta,
+                 "--actors-csv", actors, "--out", ass])),
+            ("twins", lambda: twins.main(
+                ["--path", pipeline_data, "--metadata", meta,
+                 "--actors-csv", actors])),
+            ("boxdata", lambda: boxdata.main(["--path", pipeline_data]))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        text = (open(ass).read() if name == "subtitles" else buf.getvalue())
+        outputs[name] = {"lines": len(text.splitlines()),
+                         "sha256": hashlib.sha256(text.encode()).hexdigest()}
+        if name != "twins" and not text.strip():
+            raise AssertionError(f"{name} wrote nothing")
+    result = {"phase": "tools", "card": card,
+              "detector_eval": {k: det[k] for k in (
+                  "n_pred", "n_truth", "precision", "recall",
+                  "mean_matched_iou")},
+              "detector_eval_seconds": det_s,
+              "probe_quality": {k: probe.get(k) for k in (
+                  "precision", "recall")},
+              "svm_card_vs_cpu": svm, "qa_outputs": outputs}
+    emit(result)
+    # a sanity floor: raw per-frame detections, not the tracked and
+    # merged faces that probe_quality scores
+    if det["recall"] < 0.3 or det["precision"] < 0.5:
+        raise AssertionError(f"detector_eval on the probe film: {det}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs the card",
@@ -1084,19 +1396,40 @@ def main() -> int:
           "build_seconds": time.perf_counter() - t0,
           "mem_rate_bytes_per_s": rate})
 
-    rows = phase_kernels(dev, rate)
-    phase_skewed(dev, rate)
-    rgb_rows = phase_rgb(dev, rate)
+    seconds = {}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    rows = timed_phase("kernels", phase_kernels, dev, rate)
+    timed_phase("kernels_skewed", phase_skewed, dev, rate)
+    rgb_rows = timed_phase("kernels_rgb", phase_rgb, dev, rate)
     with tempfile.TemporaryDirectory() as tmp:
         film = smoke_film()
-        main_path = phase_main_path(dev, os.path.join(tmp, "main"), film)
-        pipeline = phase_pipeline(dev, os.path.join(tmp, "pipeline"), film,
-                                  main_path["features_path"])
+        main_path = timed_phase("main_path", phase_main_path, dev,
+                                os.path.join(tmp, "main"), film)
+        wire = timed_phase("wire", phase_wire, dev,
+                           os.path.join(tmp, "wire"), film, card)
+        pipeline = timed_phase("pipeline", phase_pipeline, dev,
+                               os.path.join(tmp, "pipeline"), film,
+                               main_path["features_path"])
         del film
-        phase_probe_quality(dev, os.path.join(tmp, "probe"))
-        train = phase_train(dev, os.path.join(tmp, "train"))
-        phase_downstream_scale(dev)
-        phase_card_vs_cpu(dev, os.path.join(tmp, "cmp"))
+        probe = timed_phase("probe_quality", phase_probe_quality, dev,
+                            os.path.join(tmp, "probe"))
+        timed_phase("tools", phase_tools, dev, os.path.join(tmp, "tools"),
+                    os.path.join(tmp, "pipeline", "777-data"), probe, card)
+        train = timed_phase("train", phase_train, dev,
+                            os.path.join(tmp, "train"))
+        timed_phase("downstream_scale", phase_downstream_scale, dev)
+        soak = timed_phase("soak", phase_soak, dev,
+                           os.path.join(tmp, "soak"), card)
+        timed_phase("card_vs_cpu", phase_card_vs_cpu, dev,
+                    os.path.join(tmp, "cmp"))
+    emit({"phase": "seconds", "card": card, **seconds,
+          "total": time.perf_counter() - t0})
 
     main_row = rows[0]          # the main path's (128, 384, 768) block
     kernels = []
@@ -1110,6 +1443,9 @@ def main() -> int:
             "launches": main_path["launches"][kname],
             "pipeline_launches": pipeline["launches"][kname],
             "selfcheck_launches": train["launches"][kname],
+            "wire_launches": {k: r["launches"][kname]
+                              for k, r in wire["runs"].items()},
+            "soak_launches": soak["launches"][kname],
             "max_abs_err": max(r[f"{kname}_max_abs_err"] for r in rows),
             "ms": main_row[f"{kname}_ms"],
             "plain_ms": main_row[f"{kname}_plain_ms"],
@@ -1124,6 +1460,9 @@ def main() -> int:
         "launches": main_path["launches"]["hist256_rgb"],
         "pipeline_launches": pipeline["launches"]["hist256_rgb"],
         "selfcheck_launches": train["launches"]["hist256_rgb"],
+        "wire_launches": {k: r["launches"]["hist256_rgb"]
+                          for k, r in wire["runs"].items()},
+        "soak_launches": soak["launches"]["hist256_rgb"],
         "max_abs_err": max(r["hist256_rgb_max_abs_err"] for r in rgb_rows),
         "ms": rgb["hist256_rgb_ms"], "plain_ms": rgb["hist256_rgb_plain_ms"],
         "bound_ms": rgb["hist256_rgb_bound_ms"], "bound_by": "bytes",

@@ -81,20 +81,18 @@ class ExtractConfig:
     # Not read by the port: it computes in float32 throughout.
     compute_dtype: str = "bfloat16"
 
-    # Parallel native decode workers.  Not read by the port: its reader
-    # decodes sequentially.
+    # Parallel native decode workers (0 = FACEREC_DECODE_WORKERS, else
+    # sequential); checked against sequential decode once per film.
     decode_workers: int = 0
 
     # Device→host fetches of N consecutive blocks grouped into one
-    # transfer (output bytes are the same at any N).  Not read by the
-    # port yet: it pulls each block's results before the next block.
+    # transfer (output bytes are the same at any N).
     fetch_every_blocks: int = 4
 
     # Host→device pixel wire format.  "rgb": the decoded frames upload
-    # as they are.  The JAX package also has "rgb-delta" (uint8
-    # temporal deltas, undone exactly on the device) and "yuv420-delta"
-    # (4:2:0 planes, a few LSB of chroma lost) for hosts whose link is
-    # the bottleneck; the port accepts only "rgb" and raises otherwise.
+    # as they are; "rgb-delta": uint8 temporal deltas, undone exactly on
+    # the device (the same output bytes); "yuv420-delta": 4:2:0 planes
+    # and deltas (half the bytes; a few LSB of chroma lost).
     wire_format: str = "rgb"
 
     # Fault tolerance (SURVEY.md §5.3-5.4): block-granular in-stage

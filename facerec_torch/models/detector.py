@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -229,18 +231,27 @@ class DetectorHarness:
         """Harness with the weights of a single-file Flax checkpoint
         (``facerec_tpu/models/weights.py:save_params_npz`` or
         :func:`facerec_torch.models.convert.save_params_npz`), on the
-        card unless ``device="cpu"`` is asked for; the width comes from
-        the checkpoint's stem."""
-        from facerec_torch.models.convert import (detector_state_dict,
-                                                  load_flax_npz)
+        card unless ``device="cpu"`` is asked for.  The model arguments
+        come from a ``<name>.model.json`` beside it when there is one
+        (the distiller writes it), else the width from the stem."""
+        from facerec_torch.models.convert import (load_flax_npz,
+                                                  state_dict_from_flax)
 
         if not str(path).endswith(".npz"):
             raise ValueError(f"expected a .npz detector checkpoint, got "
                              f"{path!r} (orbax import is not ported)")
-        state = detector_state_dict(load_flax_npz(path))
-        model = FaceDetector(
-            backbone_width=state["stem.conv.weight"].shape[0])
-        model.load_state_dict(state)
+        tree = load_flax_npz(path)
+        # a distilled checkpoint carries its model arguments beside it
+        # (train/distill.py); otherwise the width is the stem's
+        sidecar = str(path)[:-len(".npz")] + ".model.json"
+        model_kwargs = {}
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                model_kwargs = json.load(f)
+        model_kwargs.setdefault("backbone_width", int(np.asarray(
+            tree["params"]["stem"]["Conv_0"]["kernel"]).shape[-1]))
+        model = FaceDetector(**model_kwargs)
+        model.load_state_dict(state_dict_from_flax(model, tree))
         return cls(model=model.to(resolve_device(device)).eval(), **kwargs)
 
     @property

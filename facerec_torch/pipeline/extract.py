@@ -1,29 +1,32 @@
 """Extract stage: decode → scene → detect → track → embed → contract files.
 
-Port of ``facerec_tpu/pipeline/extract.py`` on one device with the
-plain ``rgb`` wire.  The film streams through the device in frame
-blocks:
+Port of ``facerec_tpu/pipeline/extract.py`` on one device.  The film
+streams through the device in frame blocks:
 
-  host    decode block (B, H, W, 3)              [native C++ / OpenCV]
+  host    decode block (B, H, W, 3) RGB or (B, H·3/2, W) I420
+  host    wire encode: temporal delta (rgb-delta, yuv420-delta)
+  device  wire decode (exact delta undo; BT.601 I420 → RGB)
   device  scene statistics (CUDA kernels hist256 + cum_lookup on a card)
   device  detector forward + decode + top-k + greedy NMS
   device  tracker over the block's frames
-  host    pull the block's flags, emissions and detections
+  device  pack the block's flags, emissions and detections into bytes
+  host    every ``fetch_every_blocks`` blocks: one copy of the group's
+          payloads and its deferred embeddings (runtime/transfer.py)
   host    trajectory assembly + the deferred face buffer
-  device  crop + resize + all four FaceNet checkpoints
+  device  crop + resize + all four FaceNet checkpoints, once per group
   host    trajectory/feature/scene-change writers
 
 Cross-block carry is the scene state and the tracker table, both on the
-device.  Each block's results are pulled to the host before the next
-block; the JAX package's grouped fetches and delta wire formats are not
-ported (bytes are the same at any fetch grouping), and neither is
-``--mesh``.
+device.  Output bytes are the same at any fetch grouping and on the
+``rgb`` and ``rgb-delta`` wires; ``yuv420-delta`` requantizes chroma.
+``--mesh`` (several devices) is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -38,16 +41,27 @@ from facerec_torch.contract.naming import box_tag, movie_id_from_filename, \
 from facerec_torch.models.facenet import FaceNetEmbedder, PooledEmbedders
 from facerec_torch.models.load import load_facenet_embedders, warn_random_init
 from facerec_torch.ops import scene as scene_ops
+from facerec_torch.ops import yuv as yuv_ops
 from facerec_torch.ops.boxes import round_clip_box
 from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline import faces as faces_mod
 from facerec_torch.runtime import checkpoint as ckpt
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 from facerec_torch.runtime.metrics import StageReport
+from facerec_torch.runtime.transfer import pack_tree, tree_spec, unpack_tree
 from facerec_torch.track import (TrackEmit, TrackerConfig,
                                  TrajectoryAssembler, init_tracker,
                                  run_block)
-from facerec_torch.video.reader import load_aspect_ratio_csv, open_source
+from facerec_torch.video.reader import (fetch_ring_blocks,
+                                        load_aspect_ratio_csv, open_reader,
+                                        source_info)
+
+WIRE_FORMATS = ("rgb", "rgb-delta", "yuv420-delta")
+# crops per FaceNet forward.  On a card the crop batch is padded to a
+# multiple of it, so every crop is embedded in a batch of one shape
+# whatever the fetch grouping (cuDNN and cuBLAS pick kernels by shape,
+# and with them the rounding)
+EMBED_BATCH = 64
 
 
 @dataclasses.dataclass
@@ -61,11 +75,18 @@ class FlushPlan:
 
 @dataclasses.dataclass
 class PendingEmbed:
-    """The embedded faces of one flush, ready to be written."""
+    """A dispatched crop+embed batch of one or more flushes.
+
+    A deferred bank leaves ``dev_packed``, a uint8 device buffer of
+    ``nbytes`` bytes that rides the next group fetch and comes back to
+    :meth:`ShardConsumer.complete_flush`; a host bank (test stubs) fills
+    ``host_embeddings`` at once."""
 
     ready: List["faces_mod.PendingFace"]
     tight_boxes: List[np.ndarray]
-    embeddings: Dict[str, np.ndarray]
+    dev_packed: Optional[torch.Tensor] = None
+    nbytes: int = 0
+    host_embeddings: Optional[Dict[str, np.ndarray]] = None
 
 
 @dataclasses.dataclass
@@ -97,12 +118,21 @@ def block_step(detector, tracker_cfg: TrackerConfig, frames: torch.Tensor,
 class EmbedderBank:
     """All FaceNet checkpoints over one crop batch.
 
-    Test stubs subclass it and override ``__call__`` only."""
+    Real banks support deferred fetches: :meth:`dispatch_crop_embed`
+    leaves the embeddings on the device as one uint8 buffer, which the
+    extract loop fetches with its group and restores with
+    :meth:`unpack`.  Test stubs subclass it and override ``__call__``
+    only (host embeddings at once)."""
+
+    supports_deferred = False
 
     def __init__(self, embedders: Dict[str, FaceNetEmbedder]):
         self.embedders = embedders
         self.pooled = PooledEmbedders(list(embedders.values()))
+        self.names = list(self.pooled.names)
         self.dims = [int(e.embedding_dim) for e in embedders.values()]
+        self.total_dim = sum(self.dims)
+        self.supports_deferred = True
 
     @classmethod
     def create_default(cls, device: torch.device) -> "EmbedderBank":
@@ -120,30 +150,52 @@ class EmbedderBank:
         (:func:`facerec_torch.models.load.load_facenet_embedders`)."""
         return cls(load_facenet_embedders(weights_dir, device=device))
 
+    def dispatch_packed(self, crops: torch.Tensor) -> torch.Tensor:
+        """Embed a crop batch with every checkpoint, ``EMBED_BATCH``
+        crops at a time, leaving the (N·total_dim·4,) uint8 buffer of
+        float32 embeddings on the device."""
+        return pack_tree(torch.cat([
+            torch.cat(self.pooled(chunk), dim=-1).float()
+            for chunk in crops.split(EMBED_BATCH)]))
+
     def dispatch_crop_embed(self, stack: torch.Tensor, frame_idx: np.ndarray,
-                            crop_boxes: np.ndarray) -> Dict[str, np.ndarray]:
-        """Crop + resize on the stack's device, then embed; ``frame_idx``
-        and ``crop_boxes`` are host arrays."""
-        dev = stack.device
-        crops = crop_resize(
-            stack, torch.from_numpy(np.asarray(frame_idx, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(crop_boxes, np.float32)).to(dev),
-            FACE_IMAGE_SIZE)
-        return self(crops)
+                            crop_boxes: np.ndarray) -> torch.Tensor:
+        """Crop + resize on the stack's device, then
+        :meth:`dispatch_packed`; ``frame_idx`` and ``crop_boxes`` are
+        host arrays."""
+        return self.dispatch_packed(crops_of(stack, frame_idx, crop_boxes))
+
+    def unpack(self, buf: np.ndarray, n: int) -> Dict[str, np.ndarray]:
+        """Fetched bytes → {checkpoint: (n, dim) float32}."""
+        flat = np.asarray(buf).view(np.float32).reshape(-1, self.total_dim)
+        split = np.split(flat[:n], np.cumsum(self.dims)[:-1], axis=-1)
+        return dict(zip(self.names, split))
 
     def __call__(self, crops: torch.Tensor) -> Dict[str, np.ndarray]:
-        """(N, 160, 160, 3) crops → {checkpoint: (N, dim) float32}; the
-        checkpoints' embeddings come back in one pull."""
-        flat = torch.cat(self.pooled(crops), dim=-1).cpu().numpy()
-        split = np.split(flat, np.cumsum(self.dims)[:-1], axis=-1)
-        return dict(zip(self.pooled.names, split))
+        """(N, 160, 160, 3) crops → {checkpoint: (N, dim) float32}, in
+        one pull."""
+        return self.unpack(self.dispatch_packed(crops).cpu().numpy(),
+                           int(crops.shape[0]))
+
+
+def crops_of(stack: torch.Tensor, frame_idx: np.ndarray,
+             crop_boxes: np.ndarray) -> torch.Tensor:
+    """Face crops at the embedder's input size from a device stack of
+    frames; ``frame_idx`` and ``crop_boxes`` are host arrays."""
+    dev = stack.device
+    return crop_resize(
+        stack, torch.from_numpy(np.asarray(frame_idx, np.int64)).to(dev),
+        torch.from_numpy(np.asarray(crop_boxes, np.float32)).to(dev),
+        FACE_IMAGE_SIZE)
 
 
 class ShardConsumer:
     """Host-side state and writers of one extract shard: trajectory
     assembly, the deferred face buffer with its validity watermark, the
     pixel window for crops, batched crop+embed, and the
-    feature/image/scene-change writers."""
+    feature/image/scene-change writers.  On the yuv420-delta wire the
+    host window holds absolute I420 planes and the device window the
+    reconstructed RGB."""
 
     def __init__(self, dirs: MovieDirs, movie_id: int, cfg: ExtractConfig,
                  beg: int, end: int, d_w: int, d_h: int,
@@ -263,11 +315,19 @@ class ShardConsumer:
             faces_mod.embed_crop_box(tb, d_w, d_h) for tb in tight_boxes])
 
         if cfg.save_images:
+            rgb_memo: Dict[int, np.ndarray] = {}
             for i, p in enumerate(ready):
                 b = self._block_of(p.frame)
+                frame_px = self.pixel_window[b][p.frame - b]
+                if frame_px.ndim == 2:
+                    # yuv420-delta: convert only the frames that save a
+                    # face, with OpenCV's integer conversion
+                    if p.frame not in rgb_memo:
+                        rgb_memo[p.frame] = yuv_ops.i420_frame_to_rgb(
+                            frame_px)
+                    frame_px = rgb_memo[p.frame]
                 faces_mod.save_face_image(
-                    self.pixel_window[b][p.frame - b], p.posterior_box,
-                    d_w, d_h, self.dirs.images,
+                    frame_px, p.posterior_box, d_w, d_h, self.dirs.images,
                     box_tag(self.movie_id, p.frame, tight_boxes[i]),
                     jpeg_writer=self.jpeg_writer)
 
@@ -278,7 +338,7 @@ class ShardConsumer:
 
     def dispatch_flush_plans(self) -> Optional[PendingEmbed]:
         """One batched crop+embed over every queued plan, in selection
-        order."""
+        order: one device call per fetch group."""
         plans, self._plans = self._plans, []
         if not plans:
             return None
@@ -286,11 +346,11 @@ class ShardConsumer:
         tight_boxes = [tb for plan in plans for tb in plan.tight_boxes]
         crop_boxes = np.concatenate([plan.crop_boxes for plan in plans])
 
-        # device stack of exactly the blocks the crops reference
+        # device stack of exactly the blocks the crops reference; they
+        # are on the device already unless the run resumed
         needed = sorted({self._block_of(p.frame) for p in ready})
         dev_stack = [self.dev_window[b] if b in self.dev_window
-                     else torch.from_numpy(self.pixel_window[b]).to(
-                         self.device)
+                     else self._upload(self.pixel_window[b])
                      for b in needed]
         lens = [int(d.shape[0]) for d in dev_stack]
         dev_stack = (dev_stack[0] if len(dev_stack) == 1
@@ -301,27 +361,52 @@ class ShardConsumer:
              + (p.frame - self._block_of(p.frame)) for p in ready], np.int64)
 
         # pad the crop batch to a power of two (min 16): a bounded set
-        # of embed shapes
+        # of embed shapes; on a card to a multiple of EMBED_BATCH
         n_real = len(ready)
-        bucket = max(16, 1 << (n_real - 1).bit_length())
+        if self.device.type == "cuda":
+            bucket = -(-n_real // EMBED_BATCH) * EMBED_BATCH
+        else:
+            bucket = max(16, 1 << (n_real - 1).bit_length())
         if bucket != n_real:
             crop_boxes = np.concatenate(
                 [crop_boxes, np.tile(crop_boxes[-1:], (bucket - n_real, 1))])
             frame_idx = np.concatenate(
                 [frame_idx, np.full(bucket - n_real, frame_idx[-1])])
 
-        emb = self.embedders.dispatch_crop_embed(dev_stack, frame_idx,
-                                                 crop_boxes)
+        if getattr(self.embedders, "supports_deferred", False):
+            buf = self.embedders.dispatch_crop_embed(dev_stack, frame_idx,
+                                                     crop_boxes)
+            pe = PendingEmbed(ready, tight_boxes, dev_packed=buf,
+                              nbytes=int(buf.shape[0]))
+        else:
+            emb = self.embedders(crops_of(dev_stack, frame_idx, crop_boxes))
+            pe = PendingEmbed(ready, tight_boxes, host_embeddings={
+                name: v[:n_real] for name, v in emb.items()})
         self._trim_window()
-        return PendingEmbed(ready, tight_boxes,
-                            {name: v[:n_real] for name, v in emb.items()})
+        return pe
 
-    def complete_flush(self, pe: PendingEmbed) -> None:
-        """Write the feature records of an embedded flush."""
+    def _upload(self, block: np.ndarray) -> torch.Tensor:
+        """A host window block as device RGB (I420 blocks are converted
+        as the wire decode converts them)."""
+        dev = torch.from_numpy(block).to(self.device)
+        return yuv_ops.i420_to_rgb(dev, self.d_h) if block.ndim == 3 \
+            else dev
+
+    def complete_flush(self, pe: PendingEmbed,
+                       buf: Optional[np.ndarray] = None) -> None:
+        """Write the feature records of a dispatched flush.  ``buf`` is
+        its fetched bytes (a slice of a group fetch); None pulls
+        ``pe.dev_packed`` alone."""
+        if pe.host_embeddings is not None:
+            embeddings = pe.host_embeddings
+        else:
+            if buf is None:
+                buf = pe.dev_packed.cpu().numpy()
+            embeddings = self.embedders.unpack(buf, len(pe.ready))
         frames_seen = set()
         for i, p in enumerate(pe.ready):
             emb = {name: vecs[i].tolist()
-                   for name, vecs in pe.embeddings.items()}
+                   for name, vecs in embeddings.items()}
             rec = faces_mod.feature_record_for(
                 self.movie_id, p.frame, pe.tight_boxes[i], emb,
                 p.landmarks, self.d_w, self.d_h)
@@ -428,8 +513,40 @@ def build_embedders(facenet_weights: Optional[str],
     return EmbedderBank.create_default(device)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+class _HostCopy:
+    """One device→host copy of a uint8 buffer: on a card into pinned
+    memory, started without waiting and marked by a CUDA event; on the
+    CPU a plain copy."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.event = None
+        if buf.device.type == "cuda":
+            self.host = torch.empty(buf.shape, dtype=torch.uint8,
+                                    pin_memory=True)
+            self.host.copy_(buf, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = buf.clone()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def fetch_group_size(cfg: ExtractConfig, n_frames: int, d_h: int,
+                     d_w: int) -> int:
+    """Blocks per device→host fetch: ``fetch_every_blocks``, at most
+    ``checkpoint_every_blocks`` (a checkpoint waits for a collect), the
+    blocks left to run, and 3 GiB of frames."""
+    group = max(1, cfg.fetch_every_blocks)
+    if cfg.checkpoint_every_blocks > 0:
+        group = min(group, cfg.checkpoint_every_blocks)
+    n_blocks = -(-n_frames // cfg.block_frames)
+    group = max(1, min(group, n_blocks))
+    block_bytes = cfg.block_frames * d_h * d_w * 3
+    return max(1, min(group, (3 << 30) // max(1, block_bytes)))
 
 
 def run_extract(
@@ -454,9 +571,9 @@ def run_extract(
     """
     if not 0 <= cfg.shard_i < cfg.n_shards:
         raise ValueError("Bad shard index.")
-    if cfg.wire_format != "rgb":
-        raise NotImplementedError(
-            f"wire_format={cfg.wire_format!r} is not ported; use 'rgb'")
+    if cfg.wire_format not in WIRE_FORMATS:
+        raise ValueError(f"unknown wire_format {cfg.wire_format!r}; one of "
+                         f"{WIRE_FORMATS}")
     device = resolve_device(device)
     use_full_float32()
 
@@ -464,7 +581,7 @@ def run_extract(
     display = load_aspect_ratio_csv(aspect_csv, os.path.basename(name))
     if cfg.display_width is not None and cfg.display_height is not None:
         display = (cfg.display_width, cfg.display_height)
-    name, info, reader = open_source(file, display, cfg.block_frames)
+    name, info = source_info(file, display)
     d_w, d_h = info.display_width, info.display_height
 
     movie_id = movie_id_from_filename(name)
@@ -493,7 +610,6 @@ def run_extract(
     if cfg.resume and ckpt.is_shard_done(dirs.root, "extract", movie_id,
                                          beg, end):
         print(f"Shard {beg}-{end} already complete; skipping.")
-        reader.close()
         return ExtractCounters()
 
     if detector is None:
@@ -520,68 +636,173 @@ def run_extract(
             resume_state["tracker_state"], device)
         print(f"Resuming shard {beg}-{end} at frame {start_frame}")
 
+    group = fetch_group_size(cfg, end_overlap - start_frame, d_h, d_w)
+    wire_fmt = cfg.wire_format
+    if wire_fmt == "yuv420-delta" and (d_h % 2 or d_w % 2):
+        print(f"wire_format=yuv420-delta needs even display dims, "
+              f"got {d_w}x{d_h}; falling back to rgb", file=sys.stderr)
+        wire_fmt = "rgb"
+    # on the yuv420-delta wire the reader emits I420 planes and the host
+    # pixel window holds them (face images convert per saved frame)
+    reader = open_reader(
+        file, info, cfg.block_frames, decode_workers=cfg.decode_workers,
+        ring_blocks=fetch_ring_blocks(group, cfg.block_frames, d_h, d_w),
+        pixel_format="i420" if wire_fmt == "yuv420-delta" else "rgb")
     jpeg_writer = make_jpeg_writer(cfg)
     consumer = ShardConsumer(dirs, movie_id, cfg, beg, end, d_w, d_h,
                              embedders, device, jpeg_writer,
                              resume_state=resume_state)
 
-    # per-phase wall time.  "dispatch" is the block step as the host
-    # sees it (the tracker reads one scalar per frame, so it waits for
-    # the device there); "fetch" is the pull of the block's results
-    phase = {"decode": 0.0, "upload": 0.0, "dispatch": 0.0, "fetch": 0.0,
-             "consume": 0.0, "embed": 0.0}
-    blocks_done = 0
-    block_iter = reader.blocks(start_frame, end_overlap, cfg.block_frames)
-    with torch.inference_mode():
-        while True:
-            t0 = time.perf_counter()
-            nxt = next(block_iter, None)
-            t1 = time.perf_counter()
-            phase["decode"] += t1 - t0
-            if nxt is None:
-                break
-            frame0, frames = nxt
-            dev_frames = torch.from_numpy(frames).to(device)
-            t2 = time.perf_counter()
-            phase["upload"] += t2 - t1
-            payload, scene_state, tracker_state = block_step(
-                detector, tracker_cfg, dev_frames, scene_state,
-                tracker_state, frame0)
-            t3 = time.perf_counter()
-            phase["dispatch"] += t3 - t2
-            flags, emit, det_valid, landmarks = payload
-            flags, det_valid, landmarks = map(
-                _to_host, (flags, det_valid, landmarks))
-            emit = TrackEmit(*map(_to_host, emit))
-            t4 = time.perf_counter()
-            phase["fetch"] += t4 - t3
+    # per-phase wall time, disjoint; they sum to the loop's wall time.
+    # "dispatch" is the block step as the host sees it (the tracker
+    # reads one scalar per frame, so it waits for the device there)
+    phase = {"decode": 0.0, "encode": 0.0, "upload": 0.0, "dispatch": 0.0,
+             "fetch": 0.0, "consume": 0.0, "flush_dispatch": 0.0}
+
+    def dispatch_block(frame0: int, frames: np.ndarray) -> dict:
+        """Encode + upload + the block step; nothing is pulled."""
+        nonlocal scene_state, tracker_state
+        t0 = time.perf_counter()
+        if wire_fmt != "rgb":
+            frames_up = yuv_ops.encode_delta(frames)
+        else:
+            frames_up = frames
+        t1 = time.perf_counter()
+        dev = torch.from_numpy(frames_up).to(device)
+        t2 = time.perf_counter()
+        if wire_fmt == "rgb-delta":
+            dev = yuv_ops.delta_decode(dev)
+        elif wire_fmt == "yuv420-delta":
+            dev = yuv_ops.delta_i420_to_rgb(dev, d_h)
+        payload, scene_state, tracker_state = block_step(
+            detector, tracker_cfg, dev, scene_state, tracker_state, frame0)
+        packed = pack_tree(payload)
+        phase["encode"] += t1 - t0
+        phase["upload"] += t2 - t1
+        phase["dispatch"] += time.perf_counter() - t2
+        # the post-block device state goes with the block: dispatch runs
+        # a group ahead of the files, so a checkpoint saves the state of
+        # the last block consumed, not the loop's
+        return {"frame0": frame0, "frames": frames, "dev": dev,
+                "packed": packed, "spec": tree_spec(payload),
+                "scene_state": scene_state, "tracker_state": tracker_state}
+
+    staged: List[dict] = []        # dispatched blocks awaiting a fetch
+    deferred: List[PendingEmbed] = []   # embeddings awaiting a fetch
+    inflight = None                # {"copy", "deferred", "blocks"}
+    blocks_done = last_ckpt_blocks = 0
+    consumed_through = start_frame
+    consumed_state = (scene_state, tracker_state)
+
+    def start_fetch():
+        """Concatenate the deferred embeddings and staged payloads on the
+        device and start their one copy to the host."""
+        nonlocal inflight, staged, deferred
+        bufs = [pe.dev_packed for pe in deferred]
+        bufs.extend(blk["packed"] for blk in staged)
+        if not bufs:
+            return
+        joined = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
+        inflight = {"copy": _HostCopy(joined), "deferred": deferred,
+                    "blocks": staged}
+        staged, deferred = [], []
+
+    def collect_fetch():
+        """Wait for the group in flight; write the earlier flushes'
+        features, consume the blocks, then one crop+embed for all of
+        their flushes."""
+        nonlocal inflight, blocks_done, consumed_through, consumed_state
+        t0 = time.perf_counter()
+        buf = inflight["copy"].wait()
+        t1 = time.perf_counter()
+        off = 0
+        for pe in inflight["deferred"]:
+            consumer.complete_flush(pe, buf[off:off + pe.nbytes])
+            off += pe.nbytes
+        for blk in inflight["blocks"]:
+            n = int(blk["packed"].shape[0])
+            flags, emit, det_valid, landmarks = unpack_tree(
+                buf[off:off + n], *blk["spec"])
+            off += n
+            frame0, frames = blk["frame0"], blk["frames"]
             consumer.feed_block(frame0, frames, flags, emit, det_valid,
-                                landmarks, dev_frames=dev_frames)
+                                landmarks, dev_frames=blk["dev"])
             consumer.plan_flush(consumer.block_watermark(frame0,
                                                          len(frames)))
-            t5 = time.perf_counter()
-            phase["consume"] += t5 - t4
-            pe = consumer.dispatch_flush_plans()
-            if pe is not None:
-                consumer.complete_flush(pe)
-            phase["embed"] += time.perf_counter() - t5
             blocks_done += 1
-            if (cfg.checkpoint_every_blocks > 0
-                    and blocks_done % cfg.checkpoint_every_blocks == 0):
-                ckpt.save_checkpoint(
-                    ckpt_path, next_frame=frame0 + len(frames),
-                    scene_state=scene_state, tracker_state=tracker_state,
-                    **consumer.snapshot())
-        counters = consumer.finish()
-    reader.close()
-    if jpeg_writer is not None:
-        jpeg_writer.close()   # drains the async write queue
+            consumed_through = frame0 + len(frames)
+            consumed_state = (blk["scene_state"], blk["tracker_state"])
+        if off != buf.size:
+            raise AssertionError(f"group fetch: {off} of {buf.size} bytes")
+        inflight = None
+        t2 = time.perf_counter()
+        pe = consumer.dispatch_flush_plans()
+        t3 = time.perf_counter()
+        if pe is not None:
+            if pe.host_embeddings is not None:
+                consumer.complete_flush(pe)
+            else:
+                deferred.append(pe)
+        phase["fetch"] += t1 - t0
+        phase["consume"] += (t2 - t1) + (time.perf_counter() - t3)
+        phase["flush_dispatch"] += t3 - t2
+
+    def maybe_checkpoint():
+        nonlocal last_ckpt_blocks, deferred
+        if (cfg.checkpoint_every_blocks <= 0 or blocks_done
+                - last_ckpt_blocks < cfg.checkpoint_every_blocks):
+            return
+        # the files must hold every dispatched flush before a snapshot
+        for pe in deferred:
+            consumer.complete_flush(pe)
+        deferred = []
+        ckpt.save_checkpoint(
+            ckpt_path, next_frame=consumed_through,
+            scene_state=consumed_state[0], tracker_state=consumed_state[1],
+            **consumer.snapshot())
+        last_ckpt_blocks = blocks_done
+
+    # Every block is dispatched as it decodes; every `group` blocks their
+    # payloads (and the earlier flushes' embeddings) start one copy to
+    # the host, collected when the next group is full.  Flushes stay per
+    # block, so the files are the same at any group size.
+    block_iter = reader.blocks(start_frame, end_overlap, cfg.block_frames)
+    try:
+        with torch.inference_mode():
+            while True:
+                t0 = time.perf_counter()
+                nxt = next(block_iter, None)
+                phase["decode"] += time.perf_counter() - t0
+                if nxt is None:
+                    break
+                staged.append(dispatch_block(*nxt))
+                if len(staged) >= group:
+                    if inflight is not None:
+                        collect_fetch()
+                        maybe_checkpoint()
+                    start_fetch()
+            # drain: the group in flight, then the rest (a short last
+            # group and the last flushes' embeddings)
+            while inflight is not None or staged or deferred:
+                if inflight is not None:
+                    collect_fetch()
+                    maybe_checkpoint()
+                start_fetch()
+            counters = consumer.finish()
+    finally:
+        reader.close()
+        if jpeg_writer is not None:
+            jpeg_writer.close()   # drains the async write queue
 
     if os.path.exists(ckpt_path):
         os.remove(ckpt_path)
     for key, value in dataclasses.asdict(counters).items():
         report.set(key, value)
     report.set("blocks", blocks_done)
+    report.set("fetch_group", group)
+    report.set("wire_format", wire_fmt)
+    report.set("encode_path",
+               yuv_ops.encode_path() if wire_fmt != "rgb" else None)
     for key, value in phase.items():
         report.set(f"{key}_seconds", round(value, 3))
     report.write(dirs.root)
@@ -612,6 +833,25 @@ def main(argv=None):
     parser.add_argument("--no-images", action="store_true")
     parser.add_argument("--block-frames", type=int,
                         default=ExtractConfig.block_frames)
+    parser.add_argument("--decode-workers", type=int, default=0,
+                        help="parallel native decode workers "
+                             "(0 = FACEREC_DECODE_WORKERS or sequential)")
+    parser.add_argument("--fetch-every-blocks", type=int,
+                        default=ExtractConfig.fetch_every_blocks,
+                        help="copy the results of N blocks to the host "
+                             "in one transfer (output bytes are the same "
+                             "at any N)")
+    parser.add_argument("--wire-format", type=str, default="rgb",
+                        choices=list(WIRE_FORMATS),
+                        help="host→device pixel format.  rgb-delta ships "
+                             "uint8 temporal deltas, undone exactly on "
+                             "the device (the same output bytes as rgb); "
+                             "yuv420-delta ships 4:2:0 planes (half the "
+                             "bytes) at a few LSB of chroma in the "
+                             "device's crops and features")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="multi-device extract: not ported, raises "
+                             "above 1")
     parser.add_argument("--detector-long-side", type=int, default=0,
                         help="AR-fitted detector input long side; 0 = "
                              "native display resolution")
@@ -628,6 +868,10 @@ def main(argv=None):
                              "if omitted")
     parser.add_argument("file")
     args = parser.parse_args(argv)
+    if args.mesh > 1:
+        raise NotImplementedError(
+            "--mesh (multi-device extract) is not ported; the port runs "
+            "extract on one device")
 
     start = time.time()
     cfg = ExtractConfig(
@@ -638,6 +882,9 @@ def main(argv=None):
         min_face_size=args.min_face_size,
         face_threshold=args.face_threshold,
         save_images=not args.no_images, block_frames=args.block_frames,
+        decode_workers=args.decode_workers,
+        fetch_every_blocks=args.fetch_every_blocks,
+        wire_format=args.wire_format,
         detector_long_side=args.detector_long_side or None,
         backbone_width=args.backbone_width)
     run_extract(args.file, cfg, args.out_path.rstrip("/"),

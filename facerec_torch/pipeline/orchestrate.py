@@ -55,10 +55,6 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
         raise NotImplementedError(
             "--mesh (multi-device extract) is not ported; the port runs "
             "extract on one device")
-    if cfg.extract.wire_format != "rgb":
-        raise NotImplementedError(
-            f"wire_format={cfg.extract.wire_format!r} is not ported; "
-            f"use 'rgb'")
     in_memory = not isinstance(film, (str, os.PathLike))
     if in_memory and shard_procs > 1:
         raise ValueError("--shard-procs needs a film file: an in-memory "
@@ -195,8 +191,8 @@ def main(argv=None) -> int:
                         help="single-file Flax .npz detector checkpoint")
     parser.add_argument("--wire-format", type=str, default=None,
                         choices=["rgb", "rgb-delta", "yuv420-delta"],
-                        help="extract host→device pixel format; the port "
-                             "has only rgb and raises on the others")
+                        help="extract host→device pixel format (see "
+                             "extract --help)")
     parser.add_argument("--verbose", action="store_true")
     args = parser.parse_args(argv)
 

@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ runtime components.
 
 ``NativeVideoReader`` — double-buffered background decode
-(native/decode.cpp); ``NativeJpegWriter`` — async libjpeg face-crop
+(native/decode.cpp); ``delta_u8`` — the wire's temporal delta (same
+library); ``NativeJpegWriter`` — async libjpeg face-crop
 writer (native/jpegio.cpp).  The port's own copy of
 ``facerec_tpu/runtime/native.py``: it loads the repo's prebuilt
 libraries from ``native/``; when one does not load, callers use
@@ -52,8 +53,38 @@ def decode_lib():
                 ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8),
                 ctypes.POINTER(ctypes.c_int64)]
             lib.frd_close.argtypes = [ctypes.c_void_p]
+            if hasattr(lib, "frd_delta_u8"):
+                lib.frd_delta_u8.argtypes = [
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.c_int64, ctypes.c_int64]
         _decode_lib = lib or False
     return _decode_lib or None
+
+
+def delta_available() -> bool:
+    """Whether :func:`delta_u8` runs the native code."""
+    lib = decode_lib()
+    return lib is not None and hasattr(lib, "frd_delta_u8")
+
+
+def delta_u8(src: np.ndarray, dst: np.ndarray) -> bool:
+    """Native multithreaded per-block temporal delta (the wire encode,
+    ``frd_delta_u8``): dst[0] = src[0], dst[i] = src[i] - src[i-1] in
+    uint8 wraparound.  False when the library or the symbol does not
+    load (the library links OpenCV); the caller then uses numpy."""
+    if not delta_available():
+        return False
+    if not (src.dtype == dst.dtype == np.uint8 and src.shape == dst.shape
+            and src.flags["C_CONTIGUOUS"] and dst.flags["C_CONTIGUOUS"]):
+        raise ValueError("delta_u8 needs two C-contiguous uint8 arrays of "
+                         "one shape")
+    n = src.shape[0]
+    decode_lib().frd_delta_u8(
+        src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        n, src.nbytes // max(1, n))
+    return True
 
 
 def jpeg_lib():

@@ -3,21 +3,23 @@
 Port of ``facerec_tpu/video/reader.py``: frame count/fps probing,
 display-aspect-ratio correction (container SAR or an
 ``aspect_ratios.csv`` override), and contiguous (B, H, W, 3) uint8 RGB
-blocks.  Decoding goes through the repo's native decoder
-(``native/libfacerec_decode.so``, one sequential worker) when it loads,
-else OpenCV; both are imported only when a file is opened, because a
-host may have neither.
+blocks, or (B, H·3/2, W) I420 planes for the yuv420-delta wire.
+Decoding goes through the repo's native decoder
+(``native/libfacerec_decode.so``, sequential or with parallel workers)
+when it loads, else OpenCV; both are imported only when a file is
+opened, because a host may have neither.
 
 An in-memory :class:`~facerec_torch.video.synth.SynthClip` is accepted
-wherever a path is (:func:`open_source`): it exists only so that a host
-without a video decoder can drive the pipeline on synthetic frames, and
-adds no capability to the pipeline.
+wherever a path is (:func:`source_info`, :func:`open_reader`): it
+exists only so that a host without a video decoder can drive the
+pipeline on synthetic frames, and adds no capability to the pipeline.
 """
 from __future__ import annotations
 
 import csv
 import dataclasses
 import os
+import sys
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -78,19 +80,24 @@ def load_aspect_ratio_csv(csv_path: str,
 
 
 class VideoReader:
-    """OpenCV decode of a frame range into fixed-size RGB blocks."""
+    """OpenCV decode of a frame range into fixed-size RGB (or I420)
+    blocks."""
 
-    def __init__(self, path: str, info: VideoInfo):
+    def __init__(self, path: str, info: VideoInfo,
+                 pixel_format: str = "rgb"):
         import cv2
 
+        _check_format(info, pixel_format)
         self.cv2 = cv2
         self.info = info
+        self.pixel_format = pixel_format
         self.cap = cv2.VideoCapture(path)
 
     def read_block(self, n: int) -> np.ndarray:
-        """Up to ``n`` frames as (m, H, W, 3) uint8 RGB at display
-        resolution (m < n at end of stream)."""
+        """Up to ``n`` frames as (m, H, W, 3) uint8 RGB, or (m, H·3/2, W)
+        planar I420, at display resolution (m < n at end of stream)."""
         info = self.info
+        i420 = self.pixel_format == "i420"
         frames = []
         for _ in range(n):
             ok, frame = self.cap.read()
@@ -100,10 +107,16 @@ class VideoReader:
                     or info.display_height != info.storage_height):
                 frame = self.cv2.resize(
                     frame, (info.display_width, info.display_height))
-            frames.append(frame[..., ::-1])  # BGR → RGB
+            if i420:
+                frames.append(self.cv2.cvtColor(
+                    frame, self.cv2.COLOR_BGR2YUV_I420))
+            else:
+                frames.append(frame[..., ::-1])  # BGR → RGB
         if not frames:
-            return np.zeros((0, info.display_height, info.display_width, 3),
-                            np.uint8)
+            shape = ((0, info.display_height * 3 // 2, info.display_width)
+                     if i420 else
+                     (0, info.display_height, info.display_width, 3))
+            return np.zeros(shape, np.uint8)
         return np.ascontiguousarray(np.stack(frames))
 
     def blocks(self, beg: int, end: int, block: int
@@ -123,14 +136,28 @@ class VideoReader:
         self.cap.release()
 
 
-class NativeReader:
-    """The native C++ block decoder, one sequential worker."""
+def _check_format(info: VideoInfo, pixel_format: str) -> None:
+    if pixel_format not in ("rgb", "i420"):
+        raise ValueError(f"unknown pixel_format {pixel_format!r}")
+    if pixel_format == "i420" and (info.display_width % 2
+                                   or info.display_height % 2):
+        raise ValueError("i420 needs even display dims")
 
-    def __init__(self, path: str, info: VideoInfo, block_frames: int):
+
+class NativeReader:
+    """The native C++ block decoder (``n_workers`` decode threads, 1 =
+    sequential)."""
+
+    def __init__(self, path: str, info: VideoInfo, block_frames: int,
+                 ring_blocks: int = 2, n_workers: int = 0,
+                 pixel_format: str = "rgb"):
         from facerec_torch.runtime.native import NativeVideoReader
 
+        _check_format(info, pixel_format)
         self.native = NativeVideoReader(
-            path, info.display_width, info.display_height, block_frames)
+            path, info.display_width, info.display_height, block_frames,
+            ring_blocks=ring_blocks, n_workers=n_workers,
+            pixel_format=pixel_format)
 
     def blocks(self, beg: int, end: int, block: int):
         return self.native.blocks(beg, end)
@@ -140,43 +167,127 @@ class NativeReader:
 
 
 class MemoryReader:
-    """Blocks sliced from an in-memory (N, H, W, 3) uint8 clip."""
+    """Blocks sliced from an in-memory (N, H, W, 3) uint8 clip; in
+    ``i420`` each block is converted on the host
+    (:func:`facerec_torch.ops.yuv.rgb_to_i420`, OpenCV's bytes)."""
 
-    def __init__(self, frames: np.ndarray):
+    def __init__(self, frames: np.ndarray, pixel_format: str = "rgb"):
+        n, h, w, _ = frames.shape
+        _check_format(VideoInfo(n, 0.0, w, h, w, h), pixel_format)
         self.frames = frames
+        self.pixel_format = pixel_format
 
     def blocks(self, beg: int, end: int, block: int):
+        from facerec_torch.ops.yuv import rgb_to_i420
+
         for f in range(beg, min(end, len(self.frames)), block):
-            yield f, np.ascontiguousarray(
-                self.frames[f:min(f + block, end)])
+            chunk = self.frames[f:min(f + block, end)]
+            yield f, (rgb_to_i420(chunk) if self.pixel_format == "i420"
+                      else np.ascontiguousarray(chunk))
 
     def close(self) -> None:
         pass
 
 
-def open_block_reader(path: str, info: VideoInfo, block_frames: int):
-    """The native decoder when its library loads, else OpenCV."""
+# (path, n_workers, pixel_format, block_frames) → the probe's verdict:
+# one probe per film and setting, not one per open
+_seek_probe_cache: dict = {}
+
+
+def _parallel_seek_probe(path: str, info: VideoInfo, block_frames: int,
+                         n_workers: int, pixel_format: str) -> bool:
+    """True iff ``n_workers``-parallel decode of the first two blocks is
+    bit-identical to sequential decode of the same range.  Parallel
+    workers seek per block, which is frame-accurate for closed-GOP film
+    files but not for every codec; a mismatch drops the reader to one
+    worker instead of producing wrong frames."""
+    from facerec_torch.runtime.native import NativeVideoReader
+
+    key = (path, n_workers, pixel_format, block_frames)
+    if key in _seek_probe_cache:
+        return _seek_probe_cache[key]
+    end = min(info.n_frames, 2 * block_frames)
+    outs = []
+    for w in (1, n_workers):
+        r = NativeVideoReader(path, info.display_width, info.display_height,
+                              block_frames, ring_blocks=n_workers + 1,
+                              n_workers=w, pixel_format=pixel_format)
+        try:
+            outs.append(list(r.blocks(0, end)))
+        finally:
+            r.close()
+    seq, par = outs
+    ok = (len(seq) == len(par)
+          and all(fa == fb and a.shape == b.shape and np.array_equal(a, b)
+                  for (fa, a), (fb, b) in zip(seq, par)))
+    _seek_probe_cache[key] = ok
+    return ok
+
+
+def open_block_reader(path: str, info: VideoInfo, block_frames: int,
+                      decode_workers: int = 0, ring_blocks: int = 2,
+                      pixel_format: str = "rgb"):
+    """The native decoder when its library loads, else OpenCV.
+
+    ``decode_workers`` > 1 decodes blocks in parallel threads (0 reads
+    ``FACEREC_DECODE_WORKERS``, else sequential), after a probe that
+    parallel decode gives the sequential bytes on this film.
+    ``ring_blocks`` bounds how far decode runs ahead (see
+    :func:`fetch_ring_blocks`).  ``pixel_format="i420"`` emits
+    (m, H·3/2, W) planar 4:2:0 blocks."""
     from facerec_torch.runtime.native import decode_lib
 
+    _check_format(info, pixel_format)
     if decode_lib() is not None:
         try:
-            return NativeReader(path, info, block_frames)
+            reader = NativeReader(path, info, block_frames, ring_blocks,
+                                  decode_workers, pixel_format)
+            n = reader.native.n_workers
+            if (n > 1 and os.environ.get("FACEREC_SEEK_CHECK", "1") != "0"
+                    and not _parallel_seek_probe(path, info, block_frames,
+                                                 n, pixel_format)):
+                print(f"WARNING: parallel decode seek probe failed for "
+                      f"{os.path.basename(path)}; falling back to 1 "
+                      f"decode worker", file=sys.stderr, flush=True)
+                reader.close()
+                reader = NativeReader(path, info, block_frames, ring_blocks,
+                                      1, pixel_format)
+            return reader
         except ValueError:
             pass       # the native demuxer rejected the file
-    return VideoReader(path, info)
+    return VideoReader(path, info, pixel_format=pixel_format)
 
 
-def open_source(file, display: Optional[Tuple[int, int]], block_frames: int):
-    """(name, VideoInfo, reader) of a film path or an in-memory clip
-    (any object with ``path``, ``frames`` and ``fps``)."""
+def fetch_ring_blocks(group: int, block_frames: int, height: int,
+                      width: int, budget_bytes: int = 2 << 30) -> int:
+    """Decode-ring depth for a fetch group: group + 2 blocks ahead, so
+    decode continues through a group's fetch, capped by a host-memory
+    budget."""
+    block_bytes = max(1, block_frames * height * width * 3)
+    return max(2, min(group + 2, budget_bytes // block_bytes))
+
+
+def source_info(file, display: Optional[Tuple[int, int]]):
+    """(name, VideoInfo) of a film path or an in-memory clip (any object
+    with ``path``, ``frames`` and ``fps``)."""
     if isinstance(file, (str, os.PathLike)):
         path = os.fspath(file)
-        info = probe_video(path, display)
-        return path, info, open_block_reader(path, info, block_frames)
-    frames = np.asarray(file.frames)
-    n, h, w, _ = frames.shape
+        return path, probe_video(path, display)
+    n, h, w, _ = np.shape(file.frames)
     if display is not None and tuple(display) != (w, h):
         raise ValueError("an in-memory clip is already at display size "
                          f"{w}x{h}, not {display[0]}x{display[1]}")
-    info = VideoInfo(n, float(file.fps), w, h, w, h)
-    return file.path, info, MemoryReader(frames)
+    return file.path, VideoInfo(n, float(file.fps), w, h, w, h)
+
+
+def open_reader(file, info: VideoInfo, block_frames: int,
+                decode_workers: int = 0, ring_blocks: int = 2,
+                pixel_format: str = "rgb"):
+    """The block reader of a film path (:func:`open_block_reader`) or of
+    an in-memory clip (:class:`MemoryReader`)."""
+    if isinstance(file, (str, os.PathLike)):
+        return open_block_reader(
+            os.fspath(file), info, block_frames,
+            decode_workers=decode_workers, ring_blocks=ring_blocks,
+            pixel_format=pixel_format)
+    return MemoryReader(np.asarray(file.frames), pixel_format)

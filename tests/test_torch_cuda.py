@@ -171,3 +171,63 @@ def test_train_step_card_equals_cpu(card):
     for name, (make, batch) in cases.items():
         row, failed = cs.step_parity_row(name, make, batch, card)
         assert not failed, (failed, row)
+
+
+@pytest.mark.parametrize("b,h,w", [(4, 144, 192), (2, 576, 768)])
+def test_delta_i420_to_rgb_card_equals_cpu(card, b, h, w):
+    """The wire decode is the same float64 code on both devices: bit
+    for bit, wraparound deltas included."""
+    from facerec_torch.ops import yuv
+
+    rng = np.random.default_rng(h)
+    wire = torch.from_numpy(rng.integers(0, 256, (b, yuv.i420_rows(h), w),
+                                         dtype=np.uint8))
+    got = yuv.delta_i420_to_rgb(wire.to(card), h).cpu()
+    assert torch.equal(got, yuv.delta_i420_to_rgb(wire, h))
+    assert torch.equal(yuv.delta_decode(wire.to(card)).cpu(),
+                       yuv.delta_decode(wire))
+
+
+def test_grouped_rgb_delta_extract_card_equals_cpu(card, tmp_path):
+    """rgb-delta with fetch groups of 3 and checkpoints: the card's
+    trajectories, scene changes and features are the CPU's (features
+    within 1e-5), and the scene kernels ran once per block."""
+    import json
+    import os
+
+    from facerec_torch.config import ExtractConfig
+    from facerec_torch.pipeline.extract import run_extract
+    from facerec_torch.tools.soak import StubBank
+    from facerec_torch.video.synth import ScriptedDetector
+
+    clip = make_frames(70, width=192, height=144, seed=3, cuts=(30,),
+                       path="125261-Card.mp4")
+    cfg = ExtractConfig(block_frames=16, save_images=False, resume=False,
+                        wire_format="rgb-delta", fetch_every_blocks=3,
+                        checkpoint_every_blocks=3)
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        before = dict(eqm.launches)
+        run_extract(clip, cfg, str(tmp_path / dev.type),
+                    detector=ScriptedDetector(clip),
+                    embedders=StubBank(device=dev), device=dev)
+        if dev.type == "cuda":
+            assert eqm.launches["hist256_rgb"] == before["hist256_rgb"] + 5
+            assert eqm.launches["cum_lookup"] == before["cum_lookup"] + 5
+        outs[dev.type] = os.path.join(str(tmp_path / dev.type),
+                                      "125261-data")
+    for sub in ("trajectories", "scene_changes"):
+        for name in os.listdir(os.path.join(outs["cpu"], sub)):
+            a, b = (open(os.path.join(outs[k], sub, name), "rb").read()
+                    for k in ("cuda", "cpu"))
+            assert a == b, (sub, name)
+    (name,) = os.listdir(os.path.join(outs["cpu"], "features"))
+    recs = [[json.loads(l) for l in open(os.path.join(outs[k], "features",
+                                                      name))]
+            for k in ("cuda", "cpu")]
+    assert recs[1] and len(recs[0]) == len(recs[1])
+    for a, b in zip(*recs):
+        ea, eb = a.pop("embeddings"), b.pop("embeddings")
+        assert a == b
+        for k in ea:
+            np.testing.assert_allclose(ea[k], eb[k], rtol=0, atol=1e-5)

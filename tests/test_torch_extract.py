@@ -137,7 +137,10 @@ def test_crash_resume_matches_uninterrupted_and_jax(clip, tmp_path):
     want = str(tmp_path / "jax")
     run_jax(clip, want, 1, save_images=False)
     crashed = str(tmp_path / "crashed")
-    cfg = ExtractConfig(save_images=False, checkpoint_every_blocks=2, **KW)
+    # one block per fetch: a checkpoint lands before the crash at block
+    # 3 (the grouped case is tests/test_torch_wire.py's)
+    cfg = ExtractConfig(save_images=False, checkpoint_every_blocks=2,
+                        fetch_every_blocks=1, **KW)
     with pytest.raises(RuntimeError, match="injected crash"):
         run_extract(clip.path, cfg, crashed,
                     detector=CrashingDetector(clip, 48, max_detections=8),
@@ -197,8 +200,10 @@ def test_in_memory_clip_runs_through_extract(tmp_path):
 
 
 def test_run_extract_refuses_an_unported_wire_format(clip, tmp_path):
-    with pytest.raises(NotImplementedError):
-        run_extract(clip.path, ExtractConfig(wire_format="rgb-delta"),
+    """Every wire format of the JAX package is ported; any other name
+    raises before the film is opened."""
+    with pytest.raises(ValueError, match="unknown wire_format"):
+        run_extract(clip.path, ExtractConfig(wire_format="yuv444-delta"),
                     str(tmp_path), device="cpu")
 
 

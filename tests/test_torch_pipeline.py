@@ -13,6 +13,7 @@ package's, on the CPU, and the probe-quality replay in the port.
 * The replay of ``tests/test_probe_quality.py`` at its pinned budget
   through the port's extract, merge and ``score_detections``.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -156,9 +157,13 @@ def test_build_stages_in_memory_and_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh"):
         orchestrate.main(["--device", "cpu", "--filmfile", "125261-x.mp4",
                           "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="rgb-delta"):
-        orchestrate.main(["--device", "cpu", "--filmfile", "125261-x.mp4",
-                          "--wire-format", "rgb-delta"])
+    # every wire format is ported: the stages build without a refusal
+    wire = dataclasses.replace(cfg, extract=dataclasses.replace(
+        cfg.extract, wire_format="rgb-delta"))
+    stages = orchestrate.build_stages(mem, str(tmp_path), wire,
+                                      device="cpu")
+    assert [s.name for s in stages if not s.skip] == [
+        "extract", "merge", "cluster"]
 
 
 # --- the actor DB ---------------------------------------------------------
