@@ -7,16 +7,20 @@ against its plain PyTorch version on the card, drives the extract
 stage end to end at full model width (detector w96 with the committed
 probe weights, four full FaceNets, 128-frame blocks) on an in-memory
 synthetic film, then the whole orchestrated pipeline (extract → merge →
-cluster → classify) on the same film, replays the probe-quality gates
-of ``tests/test_probe_quality.py``, trains both models (one step card
-vs CPU, step times, then the selfcheck at the JAX package's pinned
-probe budget with its gates), times cluster and classify at the size a
-film gives them, and compares a card run with a CPU run of the
-pipeline.  It also runs extract on every wire format and fetch grouping
-(``wire``: byte-identical files, the per-block wire costs), the QA and
-parity tools (``tools``), and a 10,000-frame soak (``soak``).  Any failed check raises, so the script exits non-zero; it
-also exits non-zero without a card.  It prints JSON lines; the one
-before the last lists the kernels, the last is
+cluster → classify) on the same film, the multi-device paths on the
+one card (``multi_device``: the mesh extract as two processes sharing
+it, ``--mesh 1``, the sharded block step and the data-parallel training
+steps over gloo and NCCL process groups, ``dryrun_multichip(2)``),
+replays the probe-quality gates of ``tests/test_probe_quality.py``,
+trains both models (one step card vs CPU, step times, then the
+selfcheck at the JAX package's pinned probe budget with its gates),
+times cluster and classify at the size a film gives them, and compares
+a card run with a CPU run of the pipeline.  It also runs extract on
+every wire format and fetch grouping (``wire``: byte-identical files,
+the per-block wire costs), the QA and parity tools (``tools``), and a
+10,000-frame soak (``soak``).  Any failed check raises, so the script
+exits non-zero; it also exits non-zero without a card.  It prints JSON
+lines; the one before the last lists the kernels, the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -44,7 +48,8 @@ from facerec_torch.ops import scene as scene_ops
 from facerec_torch.pipeline.extract import EmbedderBank, run_extract
 from facerec_torch.runtime.device import resolve_device
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
-from facerec_torch.video.synth import ScriptedDetector, make_frames
+from facerec_torch.video.synth import (ScriptedDetector, make_frames,
+                                       paint_frames)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(REPO, "tests", "data", "probe_detector_w96.npz")
@@ -328,22 +333,29 @@ def check_features(path, dims):
 
 
 def smoke_film(n_frames=256, h=576, w=768, cuts=(85, 170)):
-    """The in-memory film of phases 3 and 4: 576×768, two 128-frame
-    blocks, two cuts, 2 faces from 3 identities."""
-    return make_frames(n_frames, width=w, height=h, seed=0, cuts=cuts,
-                       n_faces=2, identities=3, path="777-Smoke_Film.mp4")
+    """The in-memory film of phases 3 and 4, `wire` and `multi_device`:
+    576×768, two 128-frame blocks, two cuts, 2 faces from 3 identities,
+    painted block by block as it is read."""
+    return paint_frames(n_frames, width=w, height=h, seed=0, cuts=cuts,
+                        n_faces=2, identities=3, path="777-Smoke_Film.mp4")
+
+
+def probe_detector(dev, height, width, cfg):
+    """The committed probe detector (w96) at a film's native size, as
+    extract's ``build_detector`` makes it from ``--detector-weights``."""
+    return DetectorHarness.from_npz(
+        PROBE, device=dev,
+        input_size=fit_input_size(height, width,
+                                  long_side=max(height, width)),
+        max_detections=cfg.max_detections,
+        score_threshold=cfg.face_threshold, min_face_size=cfg.min_face_size)
 
 
 def full_width_models(dev, film, cfg):
-    """The committed probe detector (w96) at the film's native size and
-    the four full FaceNets, random from seeds 0..3."""
-    detector = DetectorHarness.from_npz(
-        PROBE, device=dev,
-        input_size=fit_input_size(film.height, film.width,
-                                  long_side=max(film.height, film.width)),
-        max_detections=cfg.max_detections,
-        score_threshold=cfg.face_threshold, min_face_size=cfg.min_face_size)
-    return detector, EmbedderBank.create_default(dev)
+    """The probe detector at the film's native size and the four full
+    FaceNets, random from seeds 0..3."""
+    return (probe_detector(dev, film.height, film.width, cfg),
+            EmbedderBank.create_default(dev))
 
 
 def reset_launches() -> None:
@@ -358,14 +370,17 @@ def path_launches(n_blocks: int) -> dict:
     return {"hist256": 0, "hist256_rgb": n_blocks, "cum_lookup": n_blocks}
 
 
-def wall_ms(fn, runs: int = 3) -> float:
-    """Median of ``runs`` synchronised wall times after one warm-up."""
+def wall_ms(fn, runs: int = 3, device=None) -> float:
+    """Median of ``runs`` synchronised wall times after one warm-up (on
+    ``device``'s clock: the card's unless the CPU is given)."""
+    sync = (lambda: None) if torch.device(device or "cuda").type == "cpu" \
+        else torch.cuda.synchronize
     times = []
     for i in range(runs + 1):
-        torch.cuda.synchronize()
+        sync()
         t = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         if i:
             times.append((time.perf_counter() - t) * 1e3)
     return float(np.median(times))
@@ -414,7 +429,8 @@ def phase_main_path(dev, out_root, film):
 
     # wall time per 128-frame block of each stage, synchronised around
     # each (this measurement only; the pipeline never synchronises)
-    frames = torch.from_numpy(film.frames[:cfg.block_frames]).to(dev)
+    frames = torch.from_numpy(
+        film.frames[:min(cfg.block_frames, n_frames)]).to(dev)
     tcfg = TrackerConfig(max_tracks=cfg.max_tracks,
                          max_detections=cfg.max_detections,
                          max_age=cfg.max_trajectory_age,
@@ -746,9 +762,10 @@ def seeded_detector(width=96):
 
 
 def train_cases(size=384, batch=16, n_ids=4, per_id=4, width=96, seed=0):
-    """name → (trainer factory on a device, one batch): the detector
-    from ``synth_batch`` at ``size``² and the 128-d FaceNet on
-    ``n_ids`` × ``per_id`` identity crops, both from seeded weights."""
+    """name → (trainer factory on a device and an optional process
+    group, one batch): the detector from ``synth_batch`` at ``size``²
+    and the 128-d FaceNet on ``n_ids`` × ``per_id`` identity crops, both
+    from seeded weights."""
     from facerec_torch.train import DetectorTrainer
     from facerec_torch.train.facenet_train import FaceNetTrainer
     from facerec_torch.video.synth import identity_crops, synth_batch
@@ -759,11 +776,12 @@ def train_cases(size=384, batch=16, n_ids=4, per_id=4, width=96, seed=0):
                             for a in range(n_ids)])
     labels = np.repeat(np.arange(n_ids, dtype=np.int32), per_id)
     return {
-        "detector": (lambda d: DetectorTrainer(
+        "detector": (lambda d, group=None: DetectorTrainer(
             seeded_detector(width), (size, size), learning_rate=1e-3,
-            device=d), det),
-        "facenet": (lambda d: FaceNetTrainer(
-            128, learning_rate=3e-4, seed=0, device=d), (crops, labels)),
+            device=d, group=group), det),
+        "facenet": (lambda d, group=None: FaceNetTrainer(
+            128, learning_rate=3e-4, seed=0, device=d, group=group),
+            (crops, labels)),
     }
 
 
@@ -1244,11 +1262,299 @@ def phase_wire(dev, out_root, film, card):
     return result
 
 
+BOX_ATOL = 1e-4     # tracker boxes (tests/test_torch_tracker_block.py)
+DP_TOL = 1e-6        # data-parallel float64 step vs the global batch's
+INT_EMIT = ("emit", "detected", "uid", "first_frame", "det_slot", "overflow")
+
+
+def multi_rank(rank, device, film, n, train_kw):
+    """One rank of the `multi_device` phase's process groups: this
+    rank's share of the sharded step on the film's first block, then one
+    float64 data-parallel step of each trainer on its shard of
+    ``train_cases(**train_kw)``' batch, then the float32 ms per step.
+    Host values only (a result is pickled to the parent)."""
+    import torch.distributed as dist
+
+    from facerec_torch.parallel.extract_sharded import sharded_extract_step
+
+    cfg = ExtractConfig(face_threshold=0.9)
+    block = min(cfg.block_frames, film.n_frames)
+    local = block // n
+    frames = torch.from_numpy(film.frames[rank * local:(rank + 1) * local])
+    detector = probe_detector(device, film.height, film.width, cfg)
+    tcfg = tracker_config(cfg)
+    reset_launches()
+    with torch.inference_mode():
+        out = sharded_extract_step(detector, tcfg, frames.to(device))
+    launches = dict(eqm.launches)
+    host = lambda t: t.cpu().numpy()
+    sharded = {"flags": host(out.flags), "valid": host(out.detections.valid),
+               "boxes": host(out.detections.boxes),
+               "box": host(out.emit.box), "launches": launches,
+               **{k: host(getattr(out.emit, k)) for k in INT_EMIT}}
+    dp, f32_ms = {}, {}
+    world = dist.group.WORLD
+    for name, (make, batch) in train_cases(**train_kw).items():
+        shard = len(batch[0]) // n
+        mine = [a[rank * shard:(rank + 1) * shard] for a in batch]
+        got = step_state(lambda d: make(d, world), mine, device,
+                         torch.float64)
+        dp[name] = tuple(to_numpy(x) for x in got)
+        trainer = make(device, world)
+        f32_ms[name] = wall_ms(lambda: trainer.step(*mine), device=device)
+        dp[name] += (trainer.replicas_identical(),)
+    return {"sharded": sharded, "dp": dp, "f32_ms_per_step": f32_ms}
+
+
+def to_numpy(x):
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    return x.numpy() if isinstance(x, torch.Tensor) else x
+
+
+def tracker_config(cfg):
+    return TrackerConfig(max_tracks=cfg.max_tracks,
+                         max_detections=cfg.max_detections,
+                         max_age=cfg.max_trajectory_age,
+                         min_hits=cfg.min_trajectory,
+                         iou_threshold=cfg.iou_threshold)
+
+
+def check_sharded(ranks, flags, dets, dev, tcfg):
+    """The ranks' sharded step against the serial block step on the
+    card: flags exact, each rank's detections equal to the detector's on
+    the same frames (the same batch shape: cuDNN picks its algorithms by
+    shape), the tracker's integer emissions exact and its boxes within
+    BOX_ATOL, uids in each rank's namespace."""
+    from facerec_torch.parallel.extract_sharded import UID_STRIDE
+
+    n = len(ranks)
+    local = len(flags) // n
+    got = np.concatenate([r["flags"] for r in ranks])
+    if not np.array_equal(got, flags.cpu().numpy()):
+        raise AssertionError(f"sharded n={n}: flags differ from serial")
+    emit_err = 0.0
+    with torch.inference_mode():
+        for rank, (r, det) in enumerate(zip(ranks, dets)):
+            if not (np.array_equal(r["valid"], det.valid.cpu().numpy())
+                    and np.array_equal(r["boxes"], det.boxes.cpu().numpy())):
+                raise AssertionError(f"sharded n={n} rank {rank}: "
+                                     f"detections differ")
+            sl = slice(rank * local, (rank + 1) * local)
+            state = init_tracker(tcfg, dev)._replace(next_uid=torch.tensor(
+                rank * UID_STRIDE, dtype=torch.int32, device=dev))
+            _, want = run_block(tcfg, state, det.boxes, det.valid,
+                                flags[sl], rank * local)
+            for k in INT_EMIT:
+                if not np.array_equal(r[k], getattr(want, k).cpu().numpy()):
+                    raise AssertionError(f"sharded n={n} rank {rank}: {k}")
+            emit_err = max(emit_err, float(np.abs(
+                r["box"] - want.box.cpu().numpy()).max()))
+            uids = r["uid"][r["emit"]]
+            if (uids // UID_STRIDE != rank).any():
+                raise AssertionError(f"sharded n={n}: uids {uids}")
+    if emit_err > BOX_ATOL:
+        raise AssertionError(f"sharded n={n}: tracker boxes {emit_err}")
+    return {"ranks": n, "flags": int(got.sum()),
+            "detections": int(sum(r["valid"].sum() for r in ranks)),
+            "detections_equal": True, "tracker_box_max_abs_err": emit_err,
+            "emitted": int(sum(r["emit"].sum() for r in ranks)),
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in eqm.launches}}
+
+
+def check_dp(ranks, want):
+    """The ranks' float64 data-parallel steps against one process's
+    step on the global batch: loss, gradients, batch statistics and
+    updates within DP_TOL; the ranks' replicas identical."""
+    out = {}
+    for name, ref in want.items():
+        rows = [compare_steps(
+            tuple(torch.from_numpy(v) if isinstance(v, np.ndarray) else
+                  ({k: torch.from_numpy(a) for k, a in v.items()}
+                   if isinstance(v, dict) else v)
+                  for v in r["dp"][name][:4]), ref) for r in ranks]
+        worst = {k: max(row[k] for row in rows) for k in (
+            "loss_rel_err", "grad_rel_err", "grad_l2_rel_err",
+            "batch_stats_err", "update_max_abs_err")}
+        bad = {k: v for k, v in worst.items() if not v <= DP_TOL}
+        if bad or not all(r["dp"][name][4] for r in ranks):
+            raise AssertionError(f"data-parallel {name} n={len(ranks)}: "
+                                 f"{bad}, replicas identical "
+                                 f"{[r['dp'][name][4] for r in ranks]}")
+        out[name] = {**worst, "replicas_identical": True,
+                     "updates_compared": rows[0]["updates_compared"],
+                     "f32_ms_per_step_per_rank": [
+                         r["f32_ms_per_step"][name] for r in ranks]}
+    return out
+
+
+def phase_multi_device(dev, out_root, film, main_root, main_path, card,
+                       groups=((2, "gloo"), (1, "nccl")), train_kw=None):
+    """Multi-device paths on the one card: the mesh extract as 2 spans
+    in 2 processes on it (files byte-identical to the serial
+    ``--n-shards 2`` loop on the card, merged equal to phase 3's, cuts
+    exact, 2 kernel launches per block per span), ``--mesh 1``, the
+    sharded step at n = 2 (gloo, both ranks on the card) and n = 1
+    (NCCL) against the serial block step, the data-parallel float64
+    steps of both trainers at n = 2 (gloo) and n = 1 (NCCL) against one
+    process on the global batch, and ``dryrun_multichip(2)``.
+    ``train_kw`` sizes the training batches (``train_cases``)."""
+    from facerec_torch.parallel.dryrun import dryrun_multichip
+    from facerec_torch.parallel.extract_mesh import (plan_spans,
+                                                     run_extract_mesh)
+    from facerec_torch.parallel.mesh import mesh_devices, run_ranks
+    from facerec_torch.pipeline.merge import run_merge
+
+    cfg = ExtractConfig(face_threshold=0.9, save_images=False, resume=False)
+    n_frames = film.n_frames
+    train_kw = train_kw or {}
+    # the worker processes share the card: hand them the memory that
+    # this process's allocator still caches from the earlier phases
+    torch.cuda.empty_cache()
+    blocks = lambda n: -(-n // cfg.block_frames)
+    span_blocks = [blocks(stop - beg) for beg, _, stop in
+                   plan_spans(n_frames, 2, cfg.max_trajectory_age)]
+    result = {"phase": "multi_device", "card": card}
+
+    # the serial --n-shards 2 loop on the card, then the mesh
+    detector, embedders = full_width_models(dev, film, cfg)
+    serial = os.path.join(out_root, "serial")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2):
+        run_extract(film, dataclasses.replace(cfg, n_shards=2, shard_i=i),
+                    serial, detector=detector, embedders=embedders,
+                    device=dev)
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    del detector, embedders
+    torch.cuda.empty_cache()
+    with open(os.path.join(serial, "777-data", "run_report.json")) as f:
+        rep = json.load(f)
+    serial_loop = sum(v for r in rep.values()
+                      for k, v in r["counters"].items()
+                      if k.endswith("_seconds"))
+
+    mesh = os.path.join(out_root, "mesh")
+    reset_launches()
+    t0 = time.perf_counter()
+    counters = run_extract_mesh(film, cfg, mesh, devices=[dev, dev],
+                                detector_weights=PROBE)
+    mesh_wall = time.perf_counter() - t0
+    launches = dict(eqm.launches)
+    with open(os.path.join(mesh, "777-data", "run_report.json")) as f:
+        rep = json.load(f)["extract_mesh_2"]["counters"]
+    if len(counters) != 2 or rep["steps"] != sum(span_blocks):
+        raise AssertionError(f"mesh: {len(counters)} spans, "
+                             f"{rep['steps']} block steps, not 2 and "
+                             f"{span_blocks}")
+    if launches != path_launches(sum(span_blocks)):
+        raise AssertionError(f"mesh kernel launches {launches}")
+    if read_outputs(mesh, 777) != read_outputs(serial, 777):
+        raise AssertionError("mesh shard files differ from the serial "
+                             "--n-shards 2 loop's")
+    merged = {}
+    for label, root in (("mesh", mesh), ("main", main_root)):
+        data = os.path.join(root, "777-data")
+        run_merge(data, 777, MergeConfig(min_face_size=20))
+        with open(os.path.join(data, "trajectories.jsonl")) as f:
+            trajs = sorted(map(json.loads, f),
+                           key=lambda t: (t["start"], t["len"]))
+        with open(os.path.join(data, "scene_changes.json")) as f:
+            merged[label] = (trajs, json.load(f)["frame_indices"])
+    (got, cuts), (want, main_cuts) = merged["mesh"], merged["main"]
+    if cuts != film.scene_cuts or main_cuts != cuts:
+        raise AssertionError(f"merged cuts {cuts} / {main_cuts}")
+    if [(t["start"], t["len"]) for t in got] != [
+            (t["start"], t["len"]) for t in want]:
+        raise AssertionError("merged mesh trajectories differ from phase 3's")
+    bbs_err = max(float(np.abs(np.asarray(a["bbs"]) - np.asarray(b["bbs"]))
+                        .max()) for a, b in zip(got, want))
+    if bbs_err > 2:     # Kalman re-initialisation at the stitched span
+        raise AssertionError(f"merged mesh boxes {bbs_err} px off")
+    result["mesh"] = {
+        "spans": 2, "devices": [str(dev)] * 2, "span_blocks": span_blocks,
+        "launches": launches, "wall_seconds": mesh_wall,
+        "frames_per_second": n_frames / mesh_wall,
+        "span_loop_seconds": rep["span_loop_seconds"],
+        "loop_frames_per_second": n_frames / max(rep["span_loop_seconds"]),
+        "serial_n_shards_2_wall_seconds": serial_wall,
+        "serial_n_shards_2_frames_per_second": n_frames / serial_wall,
+        "serial_n_shards_2_loop_frames_per_second": n_frames / serial_loop,
+        "unsharded_frames_per_second": main_path["frames_per_second"],
+        "files_identical_to_serial": True, "merged_trajectories": len(got),
+        "merged_bbs_max_abs_err_px": bbs_err, "cuts": cuts}
+
+    # --mesh 1: the CLI's device-count rule, one span on the first card
+    try:
+        mesh_devices(2, "cuda")
+        raise AssertionError("--mesh 2 ran on one card")
+    except RuntimeError as e:
+        if "needs 2 devices" not in str(e):
+            raise
+    one = os.path.join(out_root, "mesh1")
+    reset_launches()
+    run_extract_mesh(film, cfg, one, mesh_size=1, detector_weights=PROBE)
+    mesh1_launches = dict(eqm.launches)
+    if read_outputs(one, 777) != read_outputs(main_root, 777):
+        raise AssertionError("--mesh 1 files differ from phase 3's")
+    if mesh1_launches != path_launches(blocks(n_frames)):
+        raise AssertionError(f"--mesh 1 launches {mesh1_launches}")
+    result["mesh_1"] = {"files_identical_to_main_path": True,
+                        "launches": mesh1_launches}
+
+    # the sharded step and the data-parallel steps: 2 ranks sharing the
+    # card over gloo, then 1 rank over NCCL
+    tcfg = tracker_config(cfg)
+    frames = torch.from_numpy(
+        film.frames[:min(cfg.block_frames, n_frames)]).to(dev)
+    det_model = probe_detector(dev, film.height, film.width, cfg)
+    block = len(frames)
+    with torch.inference_mode():
+        flags, _ = scene_ops.detect_block(
+            frames, scene_ops.initial_state(film.height, film.width,
+                                            device=dev))
+        # the detector on each rank's frames, per mesh size; and how far
+        # the batch shape alone moves the boxes (cuDNN's algorithms)
+        dets = {n: [det_model(part) for part in frames.split(block // n)]
+                for n, _ in groups}
+        whole = det_model(frames)
+        halves = [det_model(part) for part in frames.split(block // 2)]
+    diff = (whole.boxes - torch.cat([d.boxes for d in halves])).abs()
+    spread = float(diff[whole.valid].max()) if whole.valid.any() else 0.0
+    result["detector_batch_shape_box_spread_px"] = spread
+    del frames, det_model, whole, halves
+    want = {name: step_state(make, batch, dev, torch.float64)
+            for name, (make, batch) in train_cases(**train_kw).items()}
+    torch.cuda.empty_cache()
+    light = dataclasses.replace(film, truth={}, truth_ids={})
+    for n, backend in groups:
+        ranks = run_ranks(multi_rank, [dev] * n,
+                          args=(light, n, train_kw), backend=backend)
+        sharded = check_sharded([r["sharded"] for r in ranks], flags,
+                                dets[n], dev, tcfg)
+        # one hist256_rgb and one cum_lookup per rank
+        if sharded["launches"] != path_launches(n):
+            raise AssertionError(f"sharded n={n} launches "
+                                 f"{sharded['launches']}")
+        result[f"sharded_n{n}_{backend}"] = sharded
+        result[f"data_parallel_n{n}_{backend}"] = check_dp(ranks, want)
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, devices=[dev, dev], backend="gloo")
+    result["dryrun_multichip_2"] = {**dry, "seconds":
+                                    time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def soak_child(out_root: str, n_frames: int) -> None:
     """The soak in a process of its own (started by :func:`phase_soak`,
-    so that its RSS is the soak's and not the earlier phases'): paint
-    the film, run it, write the report with the scene kernels' launches
-    to ``<out_root>/soak_child.json``."""
+    so that its RSS is the soak's and not the earlier phases'): set up
+    the painted film (painted block by block as the loop reads it), run
+    it, write the report with the scene kernels' launches to
+    ``<out_root>/soak_child.json``."""
     from facerec_torch.tools.soak import run_soak, synth_film
 
     _build.build_all()
@@ -1260,8 +1566,7 @@ def soak_child(out_root: str, n_frames: int) -> None:
     report = run_soak(out_root, block_frames=128, checkpoint_every=16,
                       fetch_every=8, wire_format="yuv420-delta",
                       save_images=False, film=film, device=dev)
-    report.update(launches=dict(eqm.launches), paint_seconds=paint,
-                  film_bytes=int(film.frames.nbytes))
+    report.update(launches=dict(eqm.launches), paint_setup_seconds=paint)
     with open(os.path.join(out_root, "soak_child.json"), "w") as f:
         json.dump(report, f)
 
@@ -1379,6 +1684,15 @@ def phase_tools(dev, out_root, pipeline_data, probe, card):
     return result
 
 
+def multi_launches(multi, kname):
+    """A kernel's launches on the `multi_device` paths."""
+    return {"mesh_launches": multi["mesh"]["launches"][kname],
+            "mesh_1_launches": multi["mesh_1"]["launches"][kname],
+            "sharded_launches": {
+                k[len("sharded_"):]: v["launches"][kname]
+                for k, v in multi.items() if k.startswith("sharded_")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs the card",
@@ -1416,6 +1730,9 @@ def main() -> int:
         pipeline = timed_phase("pipeline", phase_pipeline, dev,
                                os.path.join(tmp, "pipeline"), film,
                                main_path["features_path"])
+        multi = timed_phase("multi_device", phase_multi_device, dev,
+                            os.path.join(tmp, "multi"), film,
+                            os.path.join(tmp, "main"), main_path, card)
         del film
         probe = timed_phase("probe_quality", phase_probe_quality, dev,
                             os.path.join(tmp, "probe"))
@@ -1446,6 +1763,7 @@ def main() -> int:
             "wire_launches": {k: r["launches"][kname]
                               for k, r in wire["runs"].items()},
             "soak_launches": soak["launches"][kname],
+            **multi_launches(multi, kname),
             "max_abs_err": max(r[f"{kname}_max_abs_err"] for r in rows),
             "ms": main_row[f"{kname}_ms"],
             "plain_ms": main_row[f"{kname}_plain_ms"],
@@ -1463,6 +1781,7 @@ def main() -> int:
         "wire_launches": {k: r["launches"]["hist256_rgb"]
                           for k, r in wire["runs"].items()},
         "soak_launches": soak["launches"]["hist256_rgb"],
+        **multi_launches(multi, "hist256_rgb"),
         "max_abs_err": max(r["hist256_rgb_max_abs_err"] for r in rgb_rows),
         "ms": rgb["hist256_rgb_ms"], "plain_ms": rgb["hist256_rgb_plain_ms"],
         "bound_ms": rgb["hist256_rgb_bound_ms"], "bound_by": "bytes",

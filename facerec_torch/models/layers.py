@@ -61,7 +61,14 @@ class BatchNorm(nn.Module):
     moments), and the running statistics move by Flax's rule
     ``ra = m·ra + (1 − m)·batch`` with the biased variance — not
     ``nn.BatchNorm2d``'s, whose momentum is the complement and whose
-    running variance is unbiased."""
+    running variance is unbiased.
+
+    With a process ``group`` (:func:`set_batch_norm_group`) each rank
+    holds an equal shard of the batch, and the train-mode moments are
+    the global batch's: the sums of x and x² are all-reduced, with
+    their gradient."""
+
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.99):
@@ -76,10 +83,12 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = x.mean(dim=dims)
+            if self.group is None:
+                mean, sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            else:
+                mean, sq = _global_moments(x, dims, self.group)
             # torch.maximum splits the gradient at a tie, as jnp.maximum
-            var = torch.maximum((x * x).mean(dim=dims) - mean * mean,
-                                torch.zeros_like(mean))
+            var = torch.maximum(sq - mean * mean, torch.zeros_like(mean))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -89,6 +98,28 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps)
         return (x - mean.view(shape)) * mul.view(shape) \
             + self.bias.view(shape)
+
+
+def _global_moments(x: torch.Tensor, dims, group):
+    """E[x] and E[x²] over every axis but 1 of the batch whose equal
+    shards the ranks of ``group`` hold."""
+    import torch.distributed as dist
+
+    from facerec_torch.parallel.mesh import all_reduce
+
+    c = x.shape[1]
+    count = x.numel() // c * dist.get_world_size(group)
+    sums = all_reduce(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims)]),
+                      group)
+    return sums[:c] / count, sums[c:] / count
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Make every :class:`BatchNorm` in ``module`` take its train-mode
+    statistics over the ranks of ``group`` (None: this rank's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class ConvBN(nn.Module):

@@ -69,6 +69,32 @@ def decide(mafd, mafd_eq, sdmafd_eq, adfv_eq) -> torch.Tensor:
     return out & ~r0
 
 
+def equalize_planes(frames: torch.Tensor, lo: int, hi: int,
+                    grayscale: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, H, W, 3) uint8 frames, crop rows [lo, hi) → (y, eq, cum): the
+    packed luminance planes, their raw equalization and the cumulative
+    histograms, by the CUDA kernels on the card and their plain
+    versions on the CPU."""
+    if frames.device.type == "cuda":
+        # the kernels read the uint8 frames and write the packed plane
+        y, counts = hist256_rgb(frames.contiguous(), lo, hi, grayscale)
+        eq, cum = cum_lookup(y, counts)
+    else:
+        y, counts = hist256_rgb_plain(frames, lo, hi, grayscale)
+        eq, cum = cum_lookup_plain(y, counts)
+    return y, eq, cum
+
+
+def fv_stats(cum: torch.Tensor, mafd_eq: torch.Tensor, p: int) -> torch.Tensor:
+    """fv = mean|eq - mafd_eq| of each frame, an expectation over the
+    ≤256 distinct equalized values: from the cumulative histograms, not
+    the pixels."""
+    hist = torch.diff(cum, dim=-1, prepend=torch.zeros_like(cum[:, :1]))
+    eqval = cum * (255.0 / p)
+    return (hist * (eqval - mafd_eq[:, None]).abs()).sum(dim=-1) / p
+
+
 def detect_block(frames: torch.Tensor, state: SceneState, crop: bool = True,
                  grayscale: bool = False) -> Tuple[torch.Tensor, SceneState]:
     """Scene-change flags for a block of frames.
@@ -87,13 +113,7 @@ def detect_block(frames: torch.Tensor, state: SceneState, crop: bool = True,
     lo, hi = crop_bounds(height, width, crop)
     p = (hi - lo) * width
 
-    if frames.device.type == "cuda":
-        # the kernels read the uint8 frames and write the packed plane
-        y, counts = hist256_rgb(frames.contiguous(), lo, hi, grayscale)
-        eq, cum = cum_lookup(y, counts)
-    else:
-        y, counts = hist256_rgb_plain(frames, lo, hi, grayscale)
-        eq, cum = cum_lookup_plain(y, counts)
+    y, eq, cum = equalize_planes(frames, lo, hi, grayscale)
 
     # Padding rows hold -1 in y and 0 in eq for every frame, so they add
     # 0 to the diffs; dividing by p keeps the means over real pixels.
@@ -107,11 +127,7 @@ def detect_block(frames: torch.Tensor, state: SceneState, crop: bool = True,
     mafd = diffs(y, state.prev_y)
     mafd_eq = diffs(eq, state.prev_eq, scale)
 
-    # fv = mean|eq - mafd_eq| is an expectation over the ≤256 distinct
-    # equalized values: computed from the histogram, not the pixels.
-    hist = torch.diff(cum, dim=-1, prepend=torch.zeros_like(cum[:, :1]))
-    eqval = cum * scale
-    fv_eq = (hist * (eqval - mafd_eq[:, None]).abs()).sum(dim=-1) / p
+    fv_eq = fv_stats(cum, mafd_eq, p)
 
     mafd_eq_prev = torch.cat([state.prev_mafd_eq[None], mafd_eq[:-1]])
     fv_eq_prev = torch.cat([state.prev_fv_eq[None], fv_eq[:-1]])

@@ -19,7 +19,9 @@ streams through the device in frame blocks:
 Cross-block carry is the scene state and the tracker table, both on the
 device.  Output bytes are the same at any fetch grouping and on the
 ``rgb`` and ``rgb-delta`` wires; ``yuv420-delta`` requantizes chroma.
-``--mesh`` (several devices) is not ported.
+:func:`run_span` is that loop over one span of the film; ``--mesh N``
+runs N spans at once, one process per device
+(:mod:`facerec_torch.parallel.extract_mesh`).
 """
 from __future__ import annotations
 
@@ -519,15 +521,22 @@ class _HostCopy:
     CPU a plain copy."""
 
     def __init__(self, buf: torch.Tensor):
-        self.event = None
+        self.event = self.ready = None
         if buf.device.type == "cuda":
             self.host = torch.empty(buf.shape, dtype=torch.uint8,
                                     pin_memory=True)
+            self.ready = torch.cuda.Event()   # the buffer is computed
+            self.ready.record()
             self.host.copy_(buf, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
             self.host = buf.clone()
+
+    def wait_ready(self) -> None:
+        """Wait until the device has computed the buffer (not copied)."""
+        if self.ready is not None:
+            self.ready.synchronize()
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -536,87 +545,44 @@ class _HostCopy:
 
 
 def fetch_group_size(cfg: ExtractConfig, n_frames: int, d_h: int,
-                     d_w: int) -> int:
+                     d_w: int, spans: int = 1) -> int:
     """Blocks per device→host fetch: ``fetch_every_blocks``, at most
     ``checkpoint_every_blocks`` (a checkpoint waits for a collect), the
-    blocks left to run, and 3 GiB of frames."""
+    blocks left to run, and 3 GiB of frames over the ``spans`` that run
+    at once."""
     group = max(1, cfg.fetch_every_blocks)
     if cfg.checkpoint_every_blocks > 0:
         group = min(group, cfg.checkpoint_every_blocks)
     n_blocks = -(-n_frames // cfg.block_frames)
     group = max(1, min(group, n_blocks))
-    block_bytes = cfg.block_frames * d_h * d_w * 3
-    return max(1, min(group, (3 << 30) // max(1, block_bytes)))
+    step_bytes = spans * cfg.block_frames * d_h * d_w * 3
+    return max(1, min(group, (3 << 30) // max(1, step_bytes)))
 
 
-def run_extract(
-    file,
-    cfg: ExtractConfig,
-    out_path: str,
-    detector: Optional[Callable] = None,
-    embedders: Optional[EmbedderBank] = None,
-    aspect_csv: str = "aspect_ratios.csv",
-    detector_weights: Optional[str] = None,
-    facenet_weights: Optional[str] = None,
-    device=None,
-) -> ExtractCounters:
-    """Process one shard of a film (the whole film when n_shards=1).
+@dataclasses.dataclass
+class SpanRun:
+    """What the loop over one span reports: its counters, the blocks it
+    ran, its fetch group and wire, and its per-phase wall seconds."""
 
-    ``file`` is a film path, or an in-memory clip
-    (:func:`facerec_torch.video.synth.make_frames`) for hosts that
-    cannot decode video.  ``device`` is resolved by
-    :func:`~facerec_torch.runtime.device.resolve_device`: the card, or
-    the CPU only when asked for.  A given ``detector`` and
-    ``embedders`` must already live on that device.
-    """
-    if not 0 <= cfg.shard_i < cfg.n_shards:
-        raise ValueError("Bad shard index.")
-    if cfg.wire_format not in WIRE_FORMATS:
-        raise ValueError(f"unknown wire_format {cfg.wire_format!r}; one of "
-                         f"{WIRE_FORMATS}")
-    device = resolve_device(device)
-    use_full_float32()
+    counters: ExtractCounters
+    blocks: int
+    group: int
+    wire_format: str
+    phase: Dict[str, float]
 
-    name = file if isinstance(file, (str, os.PathLike)) else file.path
-    display = load_aspect_ratio_csv(aspect_csv, os.path.basename(name))
-    if cfg.display_width is not None and cfg.display_height is not None:
-        display = (cfg.display_width, cfg.display_height)
-    name, info = source_info(file, display)
+
+def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
+             beg: int, end: int, stop: int, detector, embedders: EmbedderBank,
+             device: torch.device, spans: int = 1) -> SpanRun:
+    """The serial extract loop over one span of a film on one device:
+    frames [beg, end) are the span's, [end, stop) the tracker overlap
+    read after it.  Resumes the span's checkpoint when ``cfg`` asks for
+    it, writes its shard files and marks it done; writes no report.
+    ``spans`` is how many spans run at once (they share the host's
+    decode ring and the device's frame memory)."""
     d_w, d_h = info.display_width, info.display_height
-
-    movie_id = movie_id_from_filename(name)
-    dirs = MovieDirs.create(out_path, movie_id)
-
-    shard_len = (info.n_frames + cfg.n_shards - 1) // cfg.n_shards
-    beg = shard_len * cfg.shard_i
-    end = min(beg + shard_len, info.n_frames)
-    end_overlap = min(end + cfg.max_trajectory_age, info.n_frames)
-
-    print(f"Movie file: {os.path.basename(name)}")
-    print(f"Total length: {(info.n_frames / info.fps / 3600):.1f}h "
-          f"({info.fps} fps)")
-    print(f"Storage resolution for film: "
-          f"{info.storage_width}x{info.storage_height}")
-    print(f"Used display resolution for film: {d_w}x{d_h}")
-    print(f"Shard {cfg.shard_i + 1} / {cfg.n_shards}, len: {shard_len} "
-          f"frames")
-    print(f"Processing frames: {beg} - {end} (max: {info.n_frames}) "
-          f"saving every 1/{cfg.save_every} frames")
-    print(f"Device: {device}")
-
-    report = StageReport(f"extract_{beg}-{end}", device)
     ckpt_path = os.path.join(dirs.root,
                              f".extract_{movie_id}_{beg}-{end}.ckpt")
-    if cfg.resume and ckpt.is_shard_done(dirs.root, "extract", movie_id,
-                                         beg, end):
-        print(f"Shard {beg}-{end} already complete; skipping.")
-        return ExtractCounters()
-
-    if detector is None:
-        detector = build_detector(cfg, d_h, d_w, detector_weights, device)
-    if embedders is None:
-        embedders = build_embedders(facenet_weights, device)
-
     tracker_cfg = TrackerConfig(
         max_tracks=cfg.max_tracks, max_detections=cfg.max_detections,
         max_age=cfg.max_trajectory_age, min_hits=cfg.min_trajectory,
@@ -636,7 +602,7 @@ def run_extract(
             resume_state["tracker_state"], device)
         print(f"Resuming shard {beg}-{end} at frame {start_frame}")
 
-    group = fetch_group_size(cfg, end_overlap - start_frame, d_h, d_w)
+    group = fetch_group_size(cfg, stop - start_frame, d_h, d_w, spans)
     wire_fmt = cfg.wire_format
     if wire_fmt == "yuv420-delta" and (d_h % 2 or d_w % 2):
         print(f"wire_format=yuv420-delta needs even display dims, "
@@ -646,7 +612,8 @@ def run_extract(
     # pixel window holds them (face images convert per saved frame)
     reader = open_reader(
         file, info, cfg.block_frames, decode_workers=cfg.decode_workers,
-        ring_blocks=fetch_ring_blocks(group, cfg.block_frames, d_h, d_w),
+        ring_blocks=fetch_ring_blocks(group, cfg.block_frames, d_h, d_w,
+                                      budget_bytes=(2 << 30) // spans),
         pixel_format="i420" if wire_fmt == "yuv420-delta" else "rgb")
     jpeg_writer = make_jpeg_writer(cfg)
     consumer = ShardConsumer(dirs, movie_id, cfg, beg, end, d_w, d_h,
@@ -658,6 +625,11 @@ def run_extract(
     # reads one scalar per frame, so it waits for the device there)
     phase = {"decode": 0.0, "encode": 0.0, "upload": 0.0, "dispatch": 0.0,
              "fetch": 0.0, "consume": 0.0, "flush_dispatch": 0.0}
+    # FACEREC_PHASE_LOG: the JAX package's per-block lines on stderr
+    phase_log = os.environ.get("FACEREC_PHASE_LOG", "") not in ("", "0")
+
+    def log(msg: str) -> None:
+        print(f"[phase] {msg}", file=sys.stderr, flush=True)
 
     def dispatch_block(frame0: int, frames: np.ndarray) -> dict:
         """Encode + upload + the block step; nothing is pulled."""
@@ -670,6 +642,8 @@ def run_extract(
         t1 = time.perf_counter()
         dev = torch.from_numpy(frames_up).to(device)
         t2 = time.perf_counter()
+        if phase_log and wire_fmt == "rgb":
+            log(f"block upload {t2 - t1:.3f}s f0={frame0}")
         if wire_fmt == "rgb-delta":
             dev = yuv_ops.delta_decode(dev)
         elif wire_fmt == "yuv420-delta":
@@ -677,9 +651,13 @@ def run_extract(
         payload, scene_state, tracker_state = block_step(
             detector, tracker_cfg, dev, scene_state, tracker_state, frame0)
         packed = pack_tree(payload)
+        t3 = time.perf_counter()
         phase["encode"] += t1 - t0
         phase["upload"] += t2 - t1
-        phase["dispatch"] += time.perf_counter() - t2
+        phase["dispatch"] += t3 - t2
+        if phase_log and wire_fmt != "rgb":
+            log(f"block f0={frame0} encode={t1 - t0:.3f}s "
+                f"upload={t2 - t1:.3f}s enqueue={t3 - t2:.3f}s")
         # the post-block device state goes with the block: dispatch runs
         # a group ahead of the files, so a checkpoint saves the state of
         # the last block consumed, not the loop's
@@ -705,6 +683,9 @@ def run_extract(
         joined = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
         inflight = {"copy": _HostCopy(joined), "deferred": deferred,
                     "blocks": staged}
+        if phase_log:
+            log(f"start_fetch nbytes={joined.numel()} n_bufs={len(bufs)} "
+                f"t={time.perf_counter():.3f}")
         staged, deferred = [], []
 
     def collect_fetch():
@@ -713,8 +694,14 @@ def run_extract(
         their flushes."""
         nonlocal inflight, blocks_done, consumed_through, consumed_state
         t0 = time.perf_counter()
+        if phase_log:
+            inflight["copy"].wait_ready()
+            t_ready = time.perf_counter()
         buf = inflight["copy"].wait()
         t1 = time.perf_counter()
+        if phase_log:
+            log(f"collect_fetch compute_wait={t_ready - t0:.3f}s "
+                f"transfer={t1 - t_ready:.3f}s nbytes={buf.size}")
         off = 0
         for pe in inflight["deferred"]:
             consumer.complete_flush(pe, buf[off:off + pe.nbytes])
@@ -766,13 +753,15 @@ def run_extract(
     # payloads (and the earlier flushes' embeddings) start one copy to
     # the host, collected when the next group is full.  Flushes stay per
     # block, so the files are the same at any group size.
-    block_iter = reader.blocks(start_frame, end_overlap, cfg.block_frames)
+    block_iter = reader.blocks(start_frame, stop, cfg.block_frames)
     try:
         with torch.inference_mode():
             while True:
                 t0 = time.perf_counter()
                 nxt = next(block_iter, None)
                 phase["decode"] += time.perf_counter() - t0
+                if phase_log:
+                    log(f"decode_wait {time.perf_counter() - t0:.3f}s")
                 if nxt is None:
                     break
                 staged.append(dispatch_block(*nxt))
@@ -796,14 +785,81 @@ def run_extract(
 
     if os.path.exists(ckpt_path):
         os.remove(ckpt_path)
+    return SpanRun(counters, blocks_done, group, wire_fmt, phase)
+
+
+def run_extract(
+    file,
+    cfg: ExtractConfig,
+    out_path: str,
+    detector: Optional[Callable] = None,
+    embedders: Optional[EmbedderBank] = None,
+    aspect_csv: str = "aspect_ratios.csv",
+    detector_weights: Optional[str] = None,
+    facenet_weights: Optional[str] = None,
+    device=None,
+) -> ExtractCounters:
+    """Process one shard of a film (the whole film when n_shards=1).
+
+    ``file`` is a film path, or an in-memory clip
+    (:func:`facerec_torch.video.synth.make_frames` or
+    :func:`~facerec_torch.video.synth.paint_frames`) for hosts that
+    cannot decode video.  ``device`` is resolved by
+    :func:`~facerec_torch.runtime.device.resolve_device`: the card, or
+    the CPU only when asked for.  A given ``detector`` and
+    ``embedders`` must already live on that device.
+    """
+    if not 0 <= cfg.shard_i < cfg.n_shards:
+        raise ValueError("Bad shard index.")
+    check_wire_format(cfg)
+    device = resolve_device(device)
+    use_full_float32()
+
+    name, info = film_info(file, cfg, aspect_csv)
+    d_w, d_h = info.display_width, info.display_height
+
+    movie_id = movie_id_from_filename(name)
+    dirs = MovieDirs.create(out_path, movie_id)
+
+    shard_len = (info.n_frames + cfg.n_shards - 1) // cfg.n_shards
+    beg = shard_len * cfg.shard_i
+    end = min(beg + shard_len, info.n_frames)
+    end_overlap = min(end + cfg.max_trajectory_age, info.n_frames)
+
+    print(f"Movie file: {os.path.basename(name)}")
+    print(f"Total length: {(info.n_frames / info.fps / 3600):.1f}h "
+          f"({info.fps} fps)")
+    print(f"Storage resolution for film: "
+          f"{info.storage_width}x{info.storage_height}")
+    print(f"Used display resolution for film: {d_w}x{d_h}")
+    print(f"Shard {cfg.shard_i + 1} / {cfg.n_shards}, len: {shard_len} "
+          f"frames")
+    print(f"Processing frames: {beg} - {end} (max: {info.n_frames}) "
+          f"saving every 1/{cfg.save_every} frames")
+    print(f"Device: {device}")
+
+    report = StageReport(f"extract_{beg}-{end}", device)
+    if cfg.resume and ckpt.is_shard_done(dirs.root, "extract", movie_id,
+                                         beg, end):
+        print(f"Shard {beg}-{end} already complete; skipping.")
+        return ExtractCounters()
+
+    if detector is None:
+        detector = build_detector(cfg, d_h, d_w, detector_weights, device)
+    if embedders is None:
+        embedders = build_embedders(facenet_weights, device)
+
+    run = run_span(file, info, cfg, dirs, movie_id, beg, end, end_overlap,
+                   detector, embedders, device)
+    counters = run.counters
     for key, value in dataclasses.asdict(counters).items():
         report.set(key, value)
-    report.set("blocks", blocks_done)
-    report.set("fetch_group", group)
-    report.set("wire_format", wire_fmt)
-    report.set("encode_path",
-               yuv_ops.encode_path() if wire_fmt != "rgb" else None)
-    for key, value in phase.items():
+    report.set("blocks", run.blocks)
+    report.set("fetch_group", run.group)
+    report.set("wire_format", run.wire_format)
+    report.set("encode_path", yuv_ops.encode_path()
+               if run.wire_format != "rgb" else None)
+    for key, value in run.phase.items():
         report.set(f"{key}_seconds", round(value, 3))
     report.write(dirs.root)
 
@@ -814,6 +870,22 @@ def run_extract(
         print(f"WARNING: {counters.overflow} detections dropped at "
               f"track-capacity limit.")
     return counters
+
+
+def check_wire_format(cfg: ExtractConfig) -> None:
+    if cfg.wire_format not in WIRE_FORMATS:
+        raise ValueError(f"unknown wire_format {cfg.wire_format!r}; one of "
+                         f"{WIRE_FORMATS}")
+
+
+def film_info(file, cfg: ExtractConfig, aspect_csv: str):
+    """(name, VideoInfo) of a film path or in-memory clip, at the
+    display size ``aspect_csv`` or ``cfg`` gives it."""
+    name = file if isinstance(file, (str, os.PathLike)) else file.path
+    display = load_aspect_ratio_csv(aspect_csv, os.path.basename(name))
+    if cfg.display_width is not None and cfg.display_height is not None:
+        display = (cfg.display_width, cfg.display_height)
+    return source_info(file, display)
 
 
 def main(argv=None):
@@ -850,8 +922,11 @@ def main(argv=None):
                              "bytes) at a few LSB of chroma in the "
                              "device's crops and features")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="multi-device extract: not ported, raises "
-                             "above 1")
+                        help="process N temporal shard spans at once, one "
+                             "process per device: the first N cards, or N "
+                             "CPU processes with --device cpu (0/1 = one "
+                             "device); writes the shard files of "
+                             "--n-shards N")
     parser.add_argument("--detector-long-side", type=int, default=0,
                         help="AR-fitted detector input long side; 0 = "
                              "native display resolution")
@@ -868,10 +943,6 @@ def main(argv=None):
                              "if omitted")
     parser.add_argument("file")
     args = parser.parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            "--mesh (multi-device extract) is not ported; the port runs "
-            "extract on one device")
 
     start = time.time()
     cfg = ExtractConfig(
@@ -887,9 +958,19 @@ def main(argv=None):
         wire_format=args.wire_format,
         detector_long_side=args.detector_long_side or None,
         backbone_width=args.backbone_width)
-    run_extract(args.file, cfg, args.out_path.rstrip("/"),
-                detector_weights=args.detector_weights,
-                facenet_weights=args.facenet_weights, device=args.device)
+    if args.mesh > 1:
+        from facerec_torch.parallel.extract_mesh import run_extract_mesh
+        from facerec_torch.parallel.mesh import mesh_devices
+
+        run_extract_mesh(args.file, cfg, args.out_path.rstrip("/"),
+                         devices=mesh_devices(args.mesh, args.device),
+                         detector_weights=args.detector_weights,
+                         facenet_weights=args.facenet_weights)
+    else:
+        run_extract(args.file, cfg, args.out_path.rstrip("/"),
+                    detector_weights=args.detector_weights,
+                    facenet_weights=args.facenet_weights,
+                    device=args.device)
     minutes, seconds = divmod(time.time() - start, 60)
     print(f"Completed in {int(minutes)} minutes, {int(seconds)} seconds.")
 

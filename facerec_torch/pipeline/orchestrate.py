@@ -2,10 +2,13 @@
 
 Port of ``facerec_tpu/pipeline/orchestrate.py``: a declarative stage
 list (download → extract → merge → cluster → classify) executed in
-order with per-stage timing and abort-on-failure, on one device.  The
-film is a path, or an in-memory clip
-(:func:`facerec_torch.video.synth.make_frames`) for a host that cannot
-decode video; the download stage is skipped for an in-memory clip.
+order with per-stage timing and abort-on-failure, on one device, or
+with ``--mesh N`` extract on N devices, one process each
+(:mod:`facerec_torch.parallel.extract_mesh`).  The film is a path, or
+an in-memory clip (:func:`facerec_torch.video.synth.make_frames`, or
+:func:`~facerec_torch.video.synth.paint_frames` for a mesh) for a host
+that cannot decode video; the download stage is skipped for an
+in-memory clip.
 """
 from __future__ import annotations
 
@@ -50,11 +53,16 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
                  embedders: Optional[EmbedderBank] = None) -> List[Stage]:
     """The stage list for one film on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``detector`` and ``embedders`` replace the
-    ones built from the weights (they must live on ``device``)."""
+    ones built from the weights (they must live on ``device``; a mesh
+    sends them to its workers).  ``mesh`` > 1 runs extract on the first
+    ``mesh`` cards, or in ``mesh`` CPU processes with ``device="cpu"``;
+    too few cards raise here."""
+    mesh_devs = None
     if mesh > 1:
-        raise NotImplementedError(
-            "--mesh (multi-device extract) is not ported; the port runs "
-            "extract on one device")
+        from facerec_torch.parallel.mesh import mesh_devices
+
+        mesh_devs = mesh_devices(mesh, device if device is not None
+                                 else "cuda")
     in_memory = not isinstance(film, (str, os.PathLike))
     if in_memory and shard_procs > 1:
         raise ValueError("--shard-procs needs a film file: an in-memory "
@@ -97,6 +105,14 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
                     raise RuntimeError(
                         f"extract shard {i} failed ({res.returncode})")
             return None
+        if mesh_devs is not None:
+            from facerec_torch.parallel.extract_mesh import run_extract_mesh
+
+            return run_extract_mesh(film, cfg.extract, out_path,
+                                    devices=mesh_devs, detector=detector,
+                                    embedders=embedders,
+                                    detector_weights=detector_weights,
+                                    facenet_weights=facenet_weights)
         return run_extract(film, cfg.extract, out_path, detector=detector,
                            embedders=embedders,
                            detector_weights=detector_weights,
@@ -183,12 +199,19 @@ def main(argv=None) -> int:
                         help="run extract as N sequential per-shard "
                              "subprocesses (shards are resumable)")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="multi-device extract: not ported, raises")
+                        help="run extract as N simultaneous shard spans, "
+                             "one process per device (see extract --mesh)")
     parser.add_argument("--facenet-weights", type=str, default=None,
                         help="directory with the four FaceNet "
                              "checkpoints (see extract --help)")
     parser.add_argument("--detector-weights", type=str, default=None,
                         help="single-file Flax .npz detector checkpoint")
+    parser.add_argument("--fetch-every-blocks", type=int, default=None,
+                        help="extract transfer batching (see extract "
+                             "--help)")
+    parser.add_argument("--decode-workers", type=int, default=None,
+                        help="parallel native decode workers for "
+                             "extract")
     parser.add_argument("--wire-format", type=str, default=None,
                         choices=["rgb", "rgb-delta", "yuv420-delta"],
                         help="extract host→device pixel format (see "
@@ -197,9 +220,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     pcfg = PipelineConfig()
-    if args.wire_format is not None:
+    overrides = {k: v for k, v in (
+        ("fetch_every_blocks", args.fetch_every_blocks),
+        ("decode_workers", args.decode_workers),
+        ("wire_format", args.wire_format)) if v is not None}
+    if overrides:
         pcfg = dataclasses.replace(pcfg, extract=dataclasses.replace(
-            pcfg.extract, wire_format=args.wire_format))
+            pcfg.extract, **overrides))
 
     stages = build_stages(args.filmfile, args.out_path, pcfg,
                           actors_dir=args.actors_dir,

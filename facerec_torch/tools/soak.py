@@ -20,11 +20,13 @@ Run (``--device cpu`` on a host without a card)::
   python -m facerec_torch.tools.soak --out DIR --frames 100000
 
 The film is an mp4 written with OpenCV (cached beside its pickled
-truth), or with ``--in-memory`` frames painted in memory
-(:func:`facerec_torch.video.synth.make_frames`): a host without a video
-codec runs that way, with ``--no-images``, and the painted frames count
-in the RSS the soak reports.  Synthesis holds the whole clip in memory
-either way.  The scripted detector replays ground truth and the default
+truth; synthesis holds the whole clip in memory), or with
+``--in-memory`` a clip painted block by block as the reader reads it
+(:func:`facerec_torch.video.synth.paint_frames`): a host without a video
+codec runs that way, with ``--no-images``, and then no film is held in
+memory.  The report keeps the RSS at every checkpoint sample beside the
+high-water and the RSS before the run, so growth can be told from fixed
+cost.  The scripted detector replays ground truth and the default
 embedder is a cheap deferred-fetch stub: the soak measures the loop and
 its memory, not model FLOPs.
 """
@@ -85,14 +87,17 @@ class StubBank(EmbedderBank):
 
 
 class _Monitor:
-    """Background sampler: host RSS high-water mark + the checkpoint's
-    next_frame series (monotone progress proof)."""
+    """Background sampler: host RSS high-water mark, the checkpoint's
+    next_frame series (monotone progress proof) and the RSS when each
+    new checkpoint was seen."""
 
     def __init__(self, ckpt_path: str, interval: float = 1.0):
         self.ckpt_path = ckpt_path
         self.interval = interval
         self.max_rss = 0
+        self.start_rss = 0
         self.ckpt_frames: list = []
+        self.ckpt_rss: list = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
 
@@ -106,9 +111,11 @@ class _Monitor:
                 f = int(state["next_frame"])
                 if not self.ckpt_frames or f != self.ckpt_frames[-1]:
                     self.ckpt_frames.append(f)
+                    self.ckpt_rss.append(_vm_rss_bytes())
             self._stop.wait(self.interval)
 
     def __enter__(self):
+        self.start_rss = _vm_rss_bytes()
         self._thread.start()
         return self
 
@@ -120,16 +127,16 @@ class _Monitor:
 
 def synth_film(out: str, n_frames: int, width: int, height: int,
                in_memory: bool = False):
-    """The soak's film: cuts every 400 frames, seed 3.  In memory, or
-    an mp4 in ``out`` cached beside its pickled truth (reused when both
-    exist)."""
-    from facerec_torch.video.synth import make_clip, make_frames
+    """The soak's film: cuts every 400 frames, seed 3.  In memory
+    (painted block by block as it is read), or an mp4 in ``out`` cached
+    beside its pickled truth (reused when both exist)."""
+    from facerec_torch.video.synth import make_clip, paint_frames
 
     name = f"125261-Soak{n_frames}.mp4"
     kw = dict(n_frames=n_frames, width=width, height=height,
               cuts=tuple(range(400, n_frames, 400)), seed=3)
     if in_memory:
-        return make_frames(path=name, **kw)
+        return paint_frames(path=name, **kw)
     import pickle
 
     from facerec_torch.tools.detector_eval import load_truth_pickle
@@ -227,10 +234,14 @@ def run_soak(out: str, n_frames: int = 100_000, width: int = 256,
         "saved_trajectories": counters.saved_trajectories,
         "overflow": counters.overflow,
         "max_rss_gb": round(mon.max_rss / (1 << 30), 3),
+        "start_rss_gb": round(mon.start_rss / (1 << 30), 3),
         "rss_budget_gb": rss_budget_gb,
         "ckpt_samples": len(mon.ckpt_frames),
         "ckpt_first_last": (mon.ckpt_frames[:1] + mon.ckpt_frames[-1:]
                             if mon.ckpt_frames else []),
+        # [next_frame, RSS in GB] at each checkpoint sample
+        "ckpt_rss_gb": [[f, round(r / (1 << 30), 3)] for f, r in
+                        zip(mon.ckpt_frames, mon.ckpt_rss)],
         "features_bytes": feat_bytes,
         "n_face_images": n_images,
         "phase_seconds": {k: v for k, v in extract_report.items()

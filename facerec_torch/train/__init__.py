@@ -1,5 +1,6 @@
 """Training: anchor target assignment, losses, train steps, BN
-recalibration (port of ``facerec_tpu/train``).  Training runs on one
-device; the JAX package's data-parallel mesh waits for multi-GPU."""
+recalibration (port of ``facerec_tpu/train``).  Both trainers run on
+one device or data parallel over a process group (the JAX package's
+``mesh``)."""
 from facerec_torch.train.detector_train import (DetectorTrainer, anchor_targets,
                                                 detector_loss)

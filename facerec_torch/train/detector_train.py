@@ -3,10 +3,9 @@
 Port of ``facerec_tpu/train/detector_train.py``: anchor assignment and
 the multi-task loss (score BCE with hard-negative weighting, smooth-L1
 box and landmark regression) of the single-stage detector, and a
-trainer that takes Adam steps on it.  The JAX trainer's ``mesh``
-(data parallel over devices) is not ported: it waits for multi-GPU.
-Target assignment runs over the whole batch at once, as the JAX code's
-``vmap`` does.
+trainer that takes Adam steps on it, on one device or data parallel
+over a process group (the JAX trainer's ``mesh``).  Target assignment
+runs over the whole batch at once, as the JAX code's ``vmap`` does.
 """
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ import torch.nn.functional as F
 from facerec_torch.models.detector import (VARIANCES, FaceDetector,
                                            anchor_centers, normalize_images)
 from facerec_torch.ops.boxes import iou_broadcast
+from facerec_torch.parallel.mesh import (average_gradients, replicas_identical,
+                                         replicate)
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 
 
@@ -151,14 +152,27 @@ class DetectorTrainer:
     statistics move at every step.  ``use_landmarks=False`` (datasets
     without landmarks, e.g. WIDER-FACE bbx_gt) leaves the landmark head
     without gradient; ``gt_landmarks`` is then ignored.
+
+    With a process ``group`` (the JAX trainer's ``mesh``) each rank
+    passes its equal shard of the global batch to :meth:`step`, and the
+    step is the one-device step on the global batch, as ``jit`` over a
+    sharded batch computes it: BatchNorm takes the global batch's
+    statistics, and the gradients are averaged over the ranks (each
+    rank's backward already holds the other ranks' share of the
+    statistics' gradient).  Every rank starts from rank 0's weights and
+    keeps the same parameters, statistics and Adam state
+    (:meth:`replicas_identical`).
     """
 
     def __init__(self, model: FaceDetector, input_size: Tuple[int, int],
                  learning_rate: float = 1e-3, use_landmarks: bool = True,
-                 device=None):
+                 device=None, group=None):
         self.device = resolve_device(device)
         use_full_float32()
         self.model = model.to(self.device).train()
+        self.group = group
+        if group is not None:
+            replicate(self.model, group)
         self.input_size = tuple(input_size)
         self.learning_rate = learning_rate
         self.use_landmarks = use_landmarks
@@ -195,11 +209,26 @@ class DetectorTrainer:
     def step(self, images, gt_boxes, gt_valid, gt_landmarks,
              content_hw=None) -> torch.Tensor:
         """One Adam step; returns the batch's loss (a 0-dim tensor on
-        the device: reading it waits for the step)."""
+        the device: reading it waits for the step).  With a group, the
+        arrays are this rank's shard and the loss is the global
+        batch's."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(images, gt_boxes, gt_valid, gt_landmarks,
                          content_hw)
         loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            import torch.distributed as dist
+
+            average_gradients(self.model.parameters(), self.group)
+            # a mean of per-image terms: equal shards average
+            dist.all_reduce(loss, group=self.group)
+            loss /= dist.get_world_size(self.group)
         self.optimizer.step()
-        return loss.detach()
+        return loss
+
+    def replicas_identical(self) -> bool:
+        """With a group: True on every rank when parameters, running
+        statistics and Adam state equal rank 0's bit for bit."""
+        return replicas_identical(self.model, self.optimizer, self.group)

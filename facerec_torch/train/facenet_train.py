@@ -2,10 +2,10 @@
 
 Port of ``facerec_tpu/train/facenet_train.py``: the batch distance
 matrix, semi-hard negative selection and the margin triplet loss, a
-trainer that takes Adam steps on the full Inception-ResNet-v1, the
-identity-crop directory dataset and the standalone CLI.  The JAX
-trainer's ``mesh`` is not ported (it waits for multi-GPU), and the CLI
-writes the single-file ``<out>/<name>.npz`` that
+trainer that takes Adam steps on the full Inception-ResNet-v1, on one
+device or data parallel over a process group (the JAX trainer's
+``mesh``), the identity-crop directory dataset and the standalone CLI.
+The CLI writes the single-file ``<out>/<name>.npz`` that
 :func:`facerec_torch.models.load.resolve_facenet_params` reads, in
 place of an orbax directory, which cannot be written without JAX.
 
@@ -25,6 +25,8 @@ import torch
 from facerec_torch.config import EMB_NAME, FACENET_DIMS
 from facerec_torch.models.facenet import FaceNet, prewhiten
 from facerec_torch.models.layers import init_weights
+from facerec_torch.parallel.mesh import (average_gradients, gather_rows,
+                                         replicas_identical, replicate)
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 
 
@@ -73,10 +75,21 @@ class FaceNetTrainer:
     """Adam steps (``optax.adam`` math) on a random-initialised
     :class:`FaceNet` (weights from ``seed``) on one device, the card
     unless ``device="cpu"`` is asked for: prewhiten → FaceNet in train
-    mode → L2 normalise (1e-12 floor) → semi-hard triplet loss."""
+    mode → L2 normalise (1e-12 floor) → semi-hard triplet loss.
+
+    With a process ``group`` (the JAX trainer's ``mesh``) each rank
+    passes its equal shard of the global batch, and the step is the
+    one-device step on the global batch: BatchNorm takes the global
+    statistics, the embeddings (with their gradient) and labels are
+    gathered before the loss, so mining runs over the global batch,
+    and the gradients are averaged over the ranks (every rank computes
+    the whole loss, so each backward holds n times its share).  Every
+    rank keeps rank 0's parameters, statistics and Adam state
+    (:meth:`replicas_identical`)."""
 
     def __init__(self, embedding_dim: int = 128, learning_rate: float = 1e-3,
-                 margin: float = 0.2, seed: int = 0, device=None):
+                 margin: float = 0.2, seed: int = 0, device=None,
+                 group=None):
         self.device = resolve_device(device)
         use_full_float32()
         self.embedding_dim = embedding_dim
@@ -84,20 +97,27 @@ class FaceNetTrainer:
         model = FaceNet(embedding_dim)
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).train()
+        self.group = group
+        if group is not None:
+            replicate(self.model, group)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
             eps=1e-8)
 
     def loss(self, crops, labels) -> torch.Tensor:
         """The loss of one batch of (N, 160, 160, 3) crops, forward in
-        train mode (the running statistics move) in the model's dtype."""
+        train mode (the running statistics move) in the model's dtype;
+        with a group, of the global batch whose shard this rank holds."""
         crops = torch.as_tensor(crops, device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
         dtype = next(self.model.parameters()).dtype
         emb = self.model(prewhiten(crops, dtype).permute(0, 3, 1, 2))
         emb = emb / torch.linalg.vector_norm(
             emb, dim=-1, keepdim=True).clamp_min(1e-12)
-        return semi_hard_triplet_loss(
-            emb, torch.as_tensor(labels, device=self.device), self.margin)
+        if self.group is not None:
+            emb = gather_rows(emb, self.group)
+            labels = gather_rows(labels, self.group)
+        return semi_hard_triplet_loss(emb, labels, self.margin)
 
     def step(self, crops, labels) -> torch.Tensor:
         """One Adam step; returns the loss (a 0-dim device tensor)."""
@@ -105,8 +125,15 @@ class FaceNetTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(crops, labels)
         loss.backward()
+        if self.group is not None:
+            average_gradients(self.model.parameters(), self.group)
         self.optimizer.step()
         return loss.detach()
+
+    def replicas_identical(self) -> bool:
+        """With a group: True on every rank when parameters, running
+        statistics and Adam state equal rank 0's bit for bit."""
+        return replicas_identical(self.model, self.optimizer, self.group)
 
 
 class IdentityCropDataset:

@@ -167,9 +167,11 @@ class NativeReader:
 
 
 class MemoryReader:
-    """Blocks sliced from an in-memory (N, H, W, 3) uint8 clip; in
-    ``i420`` each block is converted on the host
-    (:func:`facerec_torch.ops.yuv.rgb_to_i420`, OpenCV's bytes)."""
+    """Blocks sliced from an in-memory (N, H, W, 3) uint8 clip (an
+    array, or :class:`~facerec_torch.video.synth.PaintedFrames`, which
+    paints each block as it is sliced); in ``i420`` each block is
+    converted on the host (:func:`facerec_torch.ops.yuv.rgb_to_i420`,
+    OpenCV's bytes)."""
 
     def __init__(self, frames: np.ndarray, pixel_format: str = "rgb"):
         n, h, w, _ = frames.shape
@@ -290,4 +292,4 @@ def open_reader(file, info: VideoInfo, block_frames: int,
             os.fspath(file), info, block_frames,
             decode_workers=decode_workers, ring_blocks=ring_blocks,
             pixel_format=pixel_format)
-    return MemoryReader(np.asarray(file.frames), pixel_format)
+    return MemoryReader(file.frames, pixel_format)

@@ -7,14 +7,16 @@ detection stream.  The scene painter is split from the mp4 writer:
 host without OpenCV can run the pipeline on them), and
 :func:`make_clip` writes them to an mp4 with OpenCV, frame for frame
 the clip ``facerec_tpu.video.synth.make_clip`` writes for the same
-arguments.  :func:`synth_batch` and :func:`identity_crops` make the
-trainers' data, the same bytes as the JAX package's for one generator
-state, with numpy alone.
+arguments.  :func:`paint_frames` gives the same clip painted block by
+block as a reader reads it, for film-length clips and for worker
+processes (it pickles as its arguments).  :func:`synth_batch` and
+:func:`identity_crops` make the trainers' data, the same bytes as the
+JAX package's for one generator state, with numpy alone.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +37,9 @@ class SynthClip:
     # frame → identity id per truth entry (empty when identities=0)
     truth_ids: Dict[int, List[int]] = dataclasses.field(
         default_factory=dict)
-    # (n_frames, height, width, 3) uint8 RGB, when made in memory
-    frames: Optional[np.ndarray] = None
+    # (n_frames, height, width, 3) uint8 RGB when made in memory: an
+    # array (make_frames) or PaintedFrames (paint_frames)
+    frames: Optional[Union[np.ndarray, "PaintedFrames"]] = None
 
 
 def _landmarks_for(box: np.ndarray) -> np.ndarray:
@@ -78,6 +81,36 @@ def paint_face(frame: np.ndarray, box: np.ndarray,
         frame[max(cy - r, 0):cy + r, max(cx - r, 0):cx + r] = eye
 
 
+def _new_scene(rng: np.random.Generator, width: int, height: int,
+               n_faces: int, identities: int):
+    """One scene's draws, in order: the static noisy background, then
+    per face its size, position, velocity, shade and identity."""
+    bg = rng.integers(20, 90, (height, width, 3)).astype(np.uint8)
+    faces = []
+    cast = (rng.choice(identities, size=n_faces, replace=False)
+            if identities >= n_faces else None)
+    for k in range(n_faces):
+        w = rng.uniform(28, 44)
+        h = w * rng.uniform(1.1, 1.3)
+        x = rng.uniform(2, width - w - 2)
+        y = rng.uniform(2, height - h - 2)
+        vx, vy = rng.uniform(-1.5, 1.5, 2)
+        shade = int(rng.integers(170, 240))
+        ident = int(cast[k]) if cast is not None else None
+        faces.append([x, y, w, h, vx, vy, shade, ident])
+    return bg, faces
+
+
+def _advance(face: list, width: int, height: int) -> np.ndarray:
+    """Move a face by its velocity, clipped to the frame, in place;
+    returns its box [x1, y1, x2, y2]."""
+    x, y, w, h, vx, vy = face[:6]
+    x = float(np.clip(x + vx, 0, width - w))
+    y = float(np.clip(y + vy, 0, height - h))
+    face[0], face[1] = x, y
+    return np.array([x, y, x + w, y + h], np.float32)
+
+
 def make_frames(n_frames: int = 60, width: int = 192, height: int = 144,
                 fps: float = 25.0, seed: int = 0, cuts: Tuple[int, ...] = (),
                 n_faces: int = 2, identities: int = 0,
@@ -88,47 +121,137 @@ def make_frames(n_frames: int = 60, width: int = 192, height: int = 144,
     noisy backgrounds replaced at each cut (a cut also respawns faces).
     With ``identities=K`` each face carries a persistent identity
     sampled from K actors, recorded per frame in ``truth_ids``.
-    ``path`` only names the clip (its movie id).
+    ``path`` only names the clip (its movie id).  :func:`paint_frames`
+    gives the same clip without holding its frames.
     """
     rng = np.random.default_rng(seed)
     truth: Dict[int, List[Tuple[np.ndarray, np.ndarray]]] = {}
     truth_ids: Dict[int, List[int]] = {}
     frames = np.empty((n_frames, height, width, 3), np.uint8)
 
-    def new_scene():
-        bg = rng.integers(20, 90, (height, width, 3)).astype(np.uint8)
-        faces = []
-        cast = (rng.choice(identities, size=n_faces, replace=False)
-                if identities >= n_faces else None)
-        for k in range(n_faces):
-            w = rng.uniform(28, 44)
-            h = w * rng.uniform(1.1, 1.3)
-            x = rng.uniform(2, width - w - 2)
-            y = rng.uniform(2, height - h - 2)
-            vx, vy = rng.uniform(-1.5, 1.5, 2)
-            shade = int(rng.integers(170, 240))
-            ident = int(cast[k]) if cast is not None else None
-            faces.append([x, y, w, h, vx, vy, shade, ident])
-        return bg, faces
-
-    bg, faces = new_scene()
+    bg, faces = _new_scene(rng, width, height, n_faces, identities)
     for f in range(n_frames):
         if f in cuts:
-            bg, faces = new_scene()
+            bg, faces = _new_scene(rng, width, height, n_faces, identities)
         frame = bg.copy()
         truth[f] = []
         truth_ids[f] = []
         for face in faces:
-            x, y, w, h, vx, vy, shade, ident = face
-            x = float(np.clip(x + vx, 0, width - w))
-            y = float(np.clip(y + vy, 0, height - h))
-            face[0], face[1] = x, y
-            box = np.array([x, y, x + w, y + h], np.float32)
+            box = _advance(face, width, height)
+            shade, ident = face[6], face[7]
             paint_face(frame, box, ident, shade)
             truth[f].append((box, _landmarks_for(box)))
             truth_ids[f].append(-1 if ident is None else ident)
         frames[f] = frame
 
+    return SynthClip(path=path, width=width, height=height,
+                     n_frames=n_frames, fps=fps, truth=truth,
+                     scene_cuts=list(cuts), truth_ids=truth_ids,
+                     frames=frames)
+
+
+class PaintedFrames:
+    """The (n_frames, height, width, 3) uint8 frames of
+    :func:`make_frames` for the same arguments, painted when a slice of
+    them is read.
+
+    The generator draws only at scene starts, so construction replays
+    the draws once and keeps, per scene, the generator state that
+    paints its background and, per frame, the face boxes; a block is
+    then painted from those alone.  Memory holds one background, not
+    the film.  Pickles as its arguments (a worker process repaints)."""
+
+    def __init__(self, n_frames: int, width: int, height: int, seed: int,
+                 cuts: Tuple[int, ...], n_faces: int, identities: int):
+        self.args = (n_frames, width, height, seed, tuple(cuts), n_faces,
+                     identities)
+        self.shape = (n_frames, height, width, 3)
+        self.dtype = np.dtype(np.uint8)
+        rng = np.random.default_rng(seed)
+        self._states, self._styles = [], []
+        self.boxes = np.empty((n_frames, n_faces, 4), np.float32)
+        self.scene_of = np.empty(n_frames, np.int64)
+
+        def new_scene():
+            self._states.append(rng.bit_generator.state)
+            _, faces = _new_scene(rng, width, height, n_faces, identities)
+            self._styles.append([(face[6], face[7]) for face in faces])
+            return faces
+
+        faces = new_scene()
+        cut_set = set(cuts)
+        for f in range(n_frames):
+            if f in cut_set:
+                faces = new_scene()
+            for k, face in enumerate(faces):
+                self.boxes[f, k] = _advance(face, width, height)
+            self.scene_of[f] = len(self._states) - 1
+        self._bg = (-1, None)
+
+    def __reduce__(self):
+        return PaintedFrames, self.args
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, key):
+        if isinstance(key, (int, np.integer)):
+            f = range(len(self))[key]
+            return self._paint(f, f + 1)[0]
+        if not isinstance(key, slice):
+            raise TypeError(f"PaintedFrames takes an int or a slice, got "
+                            f"{type(key).__name__}")
+        start, stop, step = key.indices(len(self))
+        if step != 1:
+            raise ValueError("PaintedFrames slices take no step")
+        return self._paint(start, max(start, stop))
+
+    def __iter__(self):
+        for a in range(0, len(self), 64):
+            yield from self._paint(a, min(a + 64, len(self)))
+
+    def _background(self, scene: int) -> np.ndarray:
+        if self._bg[0] != scene:
+            rng = np.random.default_rng()
+            rng.bit_generator.state = self._states[scene]
+            _, width, height = self.args[:3]
+            self._bg = (scene, rng.integers(
+                20, 90, (height, width, 3)).astype(np.uint8))
+        return self._bg[1]
+
+    def _paint(self, a: int, b: int) -> np.ndarray:
+        out = np.empty((b - a,) + self.shape[1:], np.uint8)
+        for f in range(a, b):
+            scene = int(self.scene_of[f])
+            frame = out[f - a]
+            frame[:] = self._background(scene)
+            for box, (shade, ident) in zip(self.boxes[f],
+                                           self._styles[scene]):
+                paint_face(frame, box, ident, shade)
+        return out
+
+    def truth(self):
+        """(truth, truth_ids) as :func:`make_frames` gives them."""
+        truth, truth_ids = {}, {}
+        for f in range(len(self)):
+            styles = self._styles[int(self.scene_of[f])]
+            truth[f] = [(box, _landmarks_for(box)) for box in self.boxes[f]]
+            truth_ids[f] = [-1 if ident is None else ident
+                            for _, ident in styles]
+        return truth, truth_ids
+
+
+def paint_frames(n_frames: int = 60, width: int = 192, height: int = 144,
+                 fps: float = 25.0, seed: int = 0,
+                 cuts: Tuple[int, ...] = (), n_faces: int = 2,
+                 identities: int = 0,
+                 path: str = "synthetic.mp4") -> SynthClip:
+    """:func:`make_frames`'s clip with :class:`PaintedFrames` as its
+    frames: each block is painted when the reader reads it, so a
+    film-length clip fits in memory."""
+    frames = PaintedFrames(n_frames, width, height, seed, cuts, n_faces,
+                           identities)
+    truth, truth_ids = frames.truth()
     return SynthClip(path=path, width=width, height=height,
                      n_frames=n_frames, fps=fps, truth=truth,
                      scene_cuts=list(cuts), truth_ids=truth_ids,
@@ -267,7 +390,9 @@ class ScriptedDetector:
 
     def __init__(self, clip: SynthClip, max_detections: int = 8,
                  score: float = 0.99):
-        self.clip = clip
+        # the truth only: the detector pickles to worker processes
+        # without the clip's pixels
+        self.truth = dict(clip.truth)
         self.max_detections = max_detections
         self.score = score
         self._frame0 = 0
@@ -284,7 +409,7 @@ class ScriptedDetector:
         scores = np.zeros((b, d), np.float32)
         for i in range(b):
             for j, (box, marks) in enumerate(
-                    self.clip.truth.get(self._frame0 + i, [])[:d]):
+                    self.truth.get(self._frame0 + i, [])[:d]):
                 boxes[i, j] = box
                 ldm[i, j] = marks
                 valid[i, j] = True

@@ -232,3 +232,32 @@ def test_crop_resize_matches_jax():
     got = crop_resize(torch.from_numpy(frames), torch.from_numpy(idx),
                       torch.from_numpy(boxes), 40).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("wire", ["rgb", "yuv420-delta"])
+def test_phase_log_prints_the_jax_phase_lines(tmp_path, monkeypatch, capsys,
+                                              wire):
+    """FACEREC_PHASE_LOG=1: the JAX package's per-block [phase] lines
+    on stderr, one decode_wait per block plus the end-of-stream wait."""
+    mem = make_frames(40, cuts=(20,), seed=5,
+                      path=f"{MOVIE}-TestFilm-1955.mp4")
+    monkeypatch.setenv("FACEREC_PHASE_LOG", "1")
+    run_extract(mem, ExtractConfig(save_images=False, fetch_every_blocks=2,
+                                   wire_format=wire, **KW), str(tmp_path),
+                detector=ScriptedDetector(mem, max_detections=8),
+                embedders=StubBank(), device="cpu")
+    lines = [line for line in capsys.readouterr().err.splitlines()
+             if line.startswith("[phase] ")]
+    kinds = [line.split()[1] for line in lines]
+    assert kinds.count("decode_wait") == 3 + 1        # 40 frames, 16/block
+    assert kinds.count("block") == 3
+    block = [line for line in lines if line.split()[1] == "block"]
+    if wire == "rgb":
+        assert all(" upload " in line and "f0=" in line for line in block)
+    else:
+        assert all("encode=" in line and "enqueue=" in line
+                   for line in block)
+    assert kinds.count("start_fetch") >= 2
+    assert kinds.count("collect_fetch") == kinds.count("start_fetch")
+    assert all("compute_wait=" in line and "transfer=" in line
+               for line in lines if line.split()[1] == "collect_fetch")

@@ -48,7 +48,8 @@ from facerec_torch.models.detector import DetectorHarness
 from facerec_torch.pipeline import actors, merge, orchestrate
 from facerec_torch.pipeline.extract import run_extract
 from facerec_torch.tools.selfcheck import score_detections
-from facerec_torch.video.synth import ScriptedDetector, make_clip, make_frames
+from facerec_torch.video.synth import (ScriptedDetector, make_clip, make_frames,
+                                       paint_frames)
 
 EMB_ATOL = 1e-5
 MOVIE = 125261
@@ -145,6 +146,31 @@ def test_run_pipeline_aborts_at_the_first_failure(tmp_path):
     assert "c_seconds" not in report["counters"]
 
 
+def test_orchestrate_takes_the_jax_extract_flags(monkeypatch):
+    """A JAX orchestrate command line with --fetch-every-blocks and
+    --decode-workers parses in the port and reaches the same
+    ExtractConfig."""
+    from facerec_tpu.pipeline import orchestrate as jax_orchestrate
+
+    argv = ["--filmfile", "125261-x.mp4", "--out-path", "out",
+            "--fetch-every-blocks", "8", "--decode-workers", "3",
+            "--wire-format", "rgb-delta", "--mesh", "2", "--shard-procs",
+            "0", "--skip", "classify"]
+    seen = {}
+    for name, mod in (("jax", jax_orchestrate), ("port", orchestrate)):
+        monkeypatch.setattr(mod, "build_stages",
+                            lambda f, o, cfg, _n=name, **kw: seen.update(
+                                {_n: (f, o, cfg, kw["mesh"])}) or [])
+        monkeypatch.setattr(mod, "run_pipeline", lambda *a, **kw: True)
+        assert mod.main(argv) == 0
+    (f, o, jcfg, jmesh), (g, p, pcfg, pmesh) = seen["jax"], seen["port"]
+    assert (f, o, jmesh) == (g, p, pmesh) == ("125261-x.mp4", "out", 2)
+    assert dataclasses.asdict(pcfg.extract) == dataclasses.asdict(
+        jcfg.extract)
+    assert (pcfg.extract.fetch_every_blocks, pcfg.extract.decode_workers,
+            pcfg.extract.wire_format) == (8, 3, "rgb-delta")
+
+
 def test_build_stages_in_memory_and_refusals(tmp_path):
     mem = make_frames(8, path=f"{MOVIE}-Mem.mp4")
     cfg = PipelineConfig()
@@ -154,9 +180,23 @@ def test_build_stages_in_memory_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="film file"):
         orchestrate.build_stages(mem, str(tmp_path), cfg, shard_procs=2,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        orchestrate.main(["--device", "cpu", "--filmfile", "125261-x.mp4",
-                          "--mesh", "2"])
+    # --mesh: two CPU processes with --device cpu; the first two cards
+    # otherwise, which a host with fewer lacks
+    from tests.test_torch_mesh import StubBank as MeshStub
+
+    paint = paint_frames(8, path=f"{MOVIE}-Mem.mp4")
+    stages = orchestrate.build_stages(
+        paint, str(tmp_path), cfg, mesh=2, device="cpu",
+        detector=ScriptedDetector(paint), embedders=MeshStub())
+    assert [s.name for s in stages if not s.skip] == [
+        "extract", "merge", "cluster"]
+    counters = stages[1].run()
+    assert len(counters) == 2
+    report = json.load(open(tmp_path / f"{MOVIE}-data" / "run_report.json"))
+    assert report["extract_mesh_2"]["counters"]["spans"] == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="needs 2 devices"):
+            orchestrate.main(["--filmfile", "125261-x.mp4", "--mesh", "2"])
     # every wire format is ported: the stages build without a refusal
     wire = dataclasses.replace(cfg, extract=dataclasses.replace(
         cfg.extract, wire_format="rgb-delta"))
