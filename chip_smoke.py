@@ -42,12 +42,16 @@ from facerec_torch.config import (ACTOR_ID_PREFIX, EMB_NAME, FACENET_DIMS,
                                   ClassifyConfig, ClusterConfig,
                                   ExtractConfig, MergeConfig, PipelineConfig)
 from facerec_torch.models.detector import DetectorHarness, fit_input_size
-from facerec_torch.ops import _build
+from facerec_torch.ops import _build, assignment
 from facerec_torch.ops import equalize as eqm
 from facerec_torch.ops import scene as scene_ops
 from facerec_torch.pipeline.extract import EmbedderBank, run_extract
+from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.runtime.device import resolve_device
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
+from facerec_torch.track import tracker as trk
+from facerec_torch.track.streams import (crossing_stream, simulate_stream,
+                                         stream_arrays)
 from facerec_torch.video.synth import (ScriptedDetector, make_frames,
                                        paint_frames)
 
@@ -359,15 +363,16 @@ def full_width_models(dev, film, cfg):
 
 
 def reset_launches() -> None:
-    for k in eqm.launches:
-        eqm.launches[k] = 0
+    kernel_launches.reset()
 
 
 def path_launches(n_blocks: int) -> dict:
     """The launches a path over ``n_blocks`` frame blocks must count:
     the scene leg takes hist256's RGB entry, then cum_lookup, once per
-    block; the plane entry never runs there."""
-    return {"hist256": 0, "hist256_rgb": n_blocks, "cum_lookup": n_blocks}
+    block (the plane entry never runs there), and the tracker scans each
+    block in one tracker_scan launch."""
+    return {"hist256": 0, "hist256_rgb": n_blocks, "cum_lookup": n_blocks,
+            "tracker": n_blocks}
 
 
 def wall_ms(fn, runs: int = 3, device=None) -> float:
@@ -401,7 +406,7 @@ def phase_main_path(dev, out_root, film):
                            embedders=embedders, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(eqm.launches)
+    launches = kernel_launches.snapshot()
 
     n_blocks = -(-n_frames // cfg.block_frames)
     data = os.path.join(out_root, "777-data")
@@ -462,6 +467,10 @@ def phase_main_path(dev, out_root, film):
                 "device_activities": n_dev, "device_ms": dev_ms,
                 "busy_share": dev_ms / block_ms[key]}
     block_ms["crop_embed_crops"] = n_crops
+    crop_peak = crop_peak_bytes(dev)
+    if crop_peak >= 1 << 30:
+        raise AssertionError(f"crop_resize: 64 crops at 576x768 took "
+                             f"{crop_peak} bytes of card memory")
     result = {
         "phase": "main_path", "frames": n_frames, "blocks": n_blocks,
         "frame_size": [h, w], "wall_seconds": wall,
@@ -470,10 +479,284 @@ def phase_main_path(dev, out_root, film):
         "feature_records": n_feat, "launches": launches,
         "run_report_counters": report["counters"],
         "block_ms": block_ms, "block_device": block_device,
+        "crop_resize_64_peak_bytes": crop_peak,
     }
     emit(result)
     result["features_path"] = os.path.join(data, "features",
                                            f"features_777_{rng}.jsonl")
+    return result
+
+
+# --- the tracker kernel and the captured block step ---------------------
+
+TRACKER_SOURCE = "facerec_torch/csrc/tracker.cu"
+TRACKER_TPU = "facerec_tpu/track/tracker.py:227"
+F32_RATE = 67e12          # H100 SXM float32 outside the tensor cores
+# per-slot float operations of the tracker's frame (csrc/tracker.cu):
+# one IoU pair, one predict, one Joseph-form update with its inverse
+IOU_OPS, PREDICT_OPS, UPDATE_OPS = 17, 110, 3100
+# one graph replay against one eager step of the same step on the same
+# inputs: the same kernels, so equal but for cuDNN's or cuBLAS's choice
+# of algorithm under capture
+STEP_FP_RTOL = 1e-5
+
+
+def stream_blocks(det_stream, cuts, d, block, dev):
+    bx, va = stream_arrays(det_stream, d)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return [(to(bx[f0:f0 + block]), to(va[f0:f0 + block]),
+             to(cuts[f0:f0 + block]), f0)
+            for f0 in range(0, len(det_stream), block)]
+
+
+def tracker_cases(dev, film, cfg):
+    """(name, TrackerConfig, blocks of (boxes, valid, flags, frame0)):
+    phase 3's detections over both blocks (the probe detector, the
+    scene flags), the CPU tests' ``simulate_stream`` streams (cuts;
+    overflow at T = 3, where D > T sends every frame to the solver),
+    and crossing tracks with duplicated detections (collisions and
+    ties: the solver at T = 32, D = 16)."""
+    detector = probe_detector(dev, film.height, film.width, cfg)
+    state = scene_ops.initial_state(film.height, film.width, device=dev)
+    main = []
+    for f0 in range(0, film.n_frames, cfg.block_frames):
+        frames = torch.from_numpy(
+            film.frames[f0:f0 + cfg.block_frames]).to(dev)
+        flags, state = scene_ops.detect_block(frames, state)
+        det = detector(frames)
+        main.append((det.boxes, det.valid, flags, f0))
+    cases = [("main_path", tracker_config(cfg), main)]
+    for seed, block, t in ((0, 16, 16), (1, 7, 16), (2, 40, 16),
+                           (3, 16, 3)):
+        stream, cuts = simulate_stream(np.random.default_rng(seed),
+                                       n_frames=60, p_cut=0.05)
+        cases.append((f"simulate_stream_{seed}_T{t}",
+                       TrackerConfig(max_tracks=t, max_detections=8),
+                       stream_blocks(stream, cuts, 8, block, dev)))
+    stream, cuts = crossing_stream(np.random.default_rng(0))
+    cases.append(("crossing", TrackerConfig(max_tracks=32,
+                                            max_detections=16),
+                  stream_blocks(stream, cuts, 16, 128, dev)))
+    return cases
+
+
+def scan(run, tcfg, blocks, dev):
+    state, out = init_tracker(tcfg, dev), []
+    for bx, va, fl, f0 in blocks:
+        state, emit = run(tcfg, state, bx, va, fl, f0)
+        out.append((state, emit))
+    return out
+
+
+STATE_INTS = ("active", "uid", "first_frame", "hist_len", "tsu", "hits",
+              "initial_hits", "next_uid")
+
+
+def compare_scans(got, want, what):
+    """Integer emissions and state exact; boxes and the Kalman state's
+    largest absolute difference (returned)."""
+    err = 0.0
+    for i, ((gs, ge), (ws, we)) in enumerate(zip(got, want)):
+        for k in INT_EMIT:
+            if not torch.equal(getattr(ge, k), getattr(we, k)):
+                raise AssertionError(f"tracker {what} block {i}: {k}")
+        for k in STATE_INTS:
+            if not torch.equal(getattr(gs, k), getattr(ws, k)):
+                raise AssertionError(f"tracker {what} block {i}: state {k}")
+        for a, b in ((ge.box, we.box), (gs.kf.x, ws.kf.x),
+                     (gs.kf.p, ws.kf.p)):
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def d2h_copies(fn):
+    """Device→host copies that ``fn()`` makes, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "DtoH" in e.name)
+
+
+def tracker_bound(tcfg, boxes, emit, rate):
+    """The least time of one block's scan: bytes (the detections and the
+    state in, the state and the emissions out, each once) over the
+    memory rate, or the float operations this block's data needs over
+    the float32 rate; the larger, and which."""
+    b, d = boxes.shape[:2]
+    t = tcfg.max_tracks
+    state = t * (8 + 64) * 4 + t + 6 * t * 4 + 4
+    nbytes = (b * d * 17 + b + 4 + state) + (
+        state + b * t * (16 + 1 + 1 + 4 + 4) + b * d * 4 + b * 4)
+    ops = (b * d * t * IOU_OPS + int(emit.emit.sum()) * PREDICT_OPS
+           + int(emit.detected.sum()) * UPDATE_OPS)
+    bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F32_RATE * 1e3
+    return {"bytes": nbytes, "operations": ops, "bytes_bound_ms": bytes_ms,
+            "operations_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_tracker(dev, film, card, rate):
+    """The tracker_scan kernel against run_block_plain on the card:
+    integer emissions and state exact, boxes and the Kalman state within
+    BOX_ATOL, on phase 3's detections, the CPU tests' streams and the
+    crossing stream; the frames that took the JV solve (plain version's
+    count); device→host copies inside run_block (0); the kernel's and
+    the plain loop's ms per 128-frame block and the bound."""
+    cfg = ExtractConfig(face_threshold=0.9)
+    rows, err, jv_total = {}, 0.0, 0
+    with torch.inference_mode():
+        cases = tracker_cases(dev, film, cfg)
+        for name, tcfg, blocks in cases:
+            got = scan(trk.run_block, tcfg, blocks, dev)
+            assignment.solves["jv"] = 0
+            want = scan(trk.run_block_plain, tcfg, blocks, dev)
+            jv = assignment.solves["jv"]
+            e = compare_scans(got, want, name)
+            rows[name] = {"blocks": len(blocks), "jv_frames": jv,
+                          "frames": sum(len(b[0]) for b in blocks),
+                          "emitted": sum(int(em.emit.sum())
+                                         for _, em in got),
+                          "max_abs_err": e}
+            err, jv_total = max(err, e), jv_total + jv
+        if err > BOX_ATOL:
+            raise AssertionError(f"tracker boxes / Kalman state {err}")
+        if rows["crossing"]["jv_frames"] == 0 or jv_total == 0:
+            raise AssertionError(f"no frame took the JV solve: {rows}")
+        tcfg, (bx, va, fl, _) = cases[0][1], cases[0][2][0]
+        state0 = init_tracker(tcfg, dev)
+        kernel = lambda: trk.run_block(tcfg, state0, bx, va, fl, 0)
+        plain = lambda: trk.run_block_plain(tcfg, state0, bx, va, fl, 0)
+        copies = d2h_copies(kernel)
+        plain_copies = d2h_copies(plain)
+        if copies:
+            raise AssertionError(f"run_block copied {copies} times to the "
+                                 f"host on the card")
+        result = {
+            "phase": "tracker", "card": card, "cases": rows,
+            "max_abs_err": err, "jv_frames": jv_total,
+            "d2h_copies_in_run_block": copies,
+            "plain_d2h_copies": plain_copies,
+            "block_frames": len(bx), "ms": time_ms(kernel),
+            "plain_ms": wall_ms(plain),
+            **tracker_bound(tcfg, bx, kernel()[1], rate)}
+    emit(result)
+    return result
+
+
+def crop_peak_bytes(dev, n_crops=64, shape=MAIN_FRAMES):
+    """Peak card memory that ``crop_resize`` adds for ``n_crops`` crops
+    of a block of ``shape`` frames (the block already on the card)."""
+    from facerec_torch.ops.crops import crop_resize
+
+    b, h, w = shape
+    frames = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(0)
+    boxes = torch.from_numpy(np.stack(
+        [rng.uniform(0, 300, n_crops), rng.uniform(0, 200, n_crops),
+         rng.uniform(360, 700, n_crops), rng.uniform(300, 560, n_crops)],
+        axis=1).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, b, n_crops)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    crop_resize(frames, idx, boxes, 160)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+DEVICE_STEP_SIZES = (("detector_384x512", (384, 512)),
+                     ("native_576x768", (576, 768)))
+
+
+def phase_device_step(dev, card):
+    """``benchdev.make_device_step`` at the JAX bench's settings (block
+    128, 576×768, 64 crops; detector (384, 512) and native (576, 768))
+    in bfloat16, then float32: one captured CUDA graph each.  One
+    replay equals one eager step on the same inputs (fingerprint within
+    STEP_FP_RTOL, tracker integers exact, states within BOX_ATOL and
+    float32 rounding); each kernel launched once per replay; 20
+    replays, best of 3 rounds, as frames/s; the peak card memory."""
+    from facerec_torch.benchdev import make_device_step
+
+    block, (h, w) = 128, MAIN_FRAMES[1:]
+    result = {"phase": "device_step", "card": card, "block": block,
+              "frame_size": [h, w], "crops": 64, "runs": {}}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        bank = EmbedderBank.create_default(dev, dtype=dtype)
+        for label, size in DEVICE_STEP_SIZES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            step, args = make_device_step(size, block, h, w, 64, bank=bank,
+                                          device=dev, dtype=dtype)
+            build = time.perf_counter() - t0
+            parts = step.components(*args)
+            want = (parts["fingerprint"], parts["scene_state"],
+                    parts["tracker_state"])
+            got = step(*args)
+            torch.cuda.synchronize()
+            fp_err = abs(float(got[0]) - float(want[0]))
+            if not fp_err <= STEP_FP_RTOL * abs(float(want[0])):
+                raise AssertionError(f"device_step {dname} {label}: replay "
+                                     f"{float(got[0])} != eager "
+                                     f"{float(want[0])}")
+            for k in STATE_INTS:
+                if not torch.equal(getattr(got[2], k), getattr(want[2], k)):
+                    raise AssertionError(f"device_step {dname} {label}: "
+                                         f"tracker {k}")
+            state_err = max(float((a.float() - b.float()).abs().max())
+                            for a, b in ((got[2].kf.x, want[2].kf.x),
+                                         (got[2].kf.p, want[2].kf.p)))
+            scene_err = max(
+                float(((a.float() - b.float()).abs()
+                       / b.float().abs().clamp_min(1.0)).max())
+                for a, b in zip(got[1], want[1]))
+            if state_err > BOX_ATOL or scene_err > STEP_FP_RTOL:
+                raise AssertionError(f"device_step {dname} {label}: states "
+                                     f"{state_err}, {scene_err}")
+            if step.captured_launches != path_launches(1):
+                raise AssertionError(f"device_step launches per replay "
+                                     f"{step.captured_launches}")
+            best = float("inf")
+            a = args
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(20):
+                    out = step(*a)
+                    a = (a[0], out[1], out[2], a[3], a[4])
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t)
+            result["runs"][f"{dname}_{label}"] = {
+                "dtype": dname, "detector_size": list(size),
+                "build_and_capture_seconds": build,
+                "fingerprint": float(want[0]),
+                "detections": int(parts["detections"].valid.sum()),
+                "tracker_emitted": int(parts["emit"].emit.sum()),
+                "replay_vs_eager_fingerprint_abs_err": fp_err,
+                "replay_vs_eager_state_max_abs_err": state_err,
+                "replay_vs_eager_scene_max_rel_err": scene_err,
+                "launches_per_replay": step.captured_launches,
+                "replays": step.replays,
+                "ms_per_block": best / 20 * 1e3,
+                "frames_per_second": 20 * block / best,
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(dev),
+                "step_peak_bytes_above_bank":
+                    torch.cuda.max_memory_allocated(dev) - base}
+            del step, args, a, out, want, got, parts
+            torch.cuda.empty_cache()
+        del bank
+        torch.cuda.empty_cache()
+    emit(result)
     return result
 
 
@@ -644,7 +927,7 @@ def phase_pipeline(dev, out_root, film, features_path):
     ok = run_pipeline(stages, data_dir=data, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(eqm.launches)
+    launches = kernel_launches.snapshot()
     if not ok:
         raise AssertionError("the orchestrated pipeline failed (traceback "
                              "above)")
@@ -985,7 +1268,7 @@ def phase_train(dev, out_root):
     t0 = time.perf_counter()
     report = selfcheck.run(args)
     wall = time.perf_counter() - t0
-    launches = dict(eqm.launches)
+    launches = kernel_launches.snapshot()
     failures = selfcheck.check_gates(report, **SELFCHECK_GATES)
     blocks = -(-args.film_frames // ExtractConfig().block_frames)
     result = {
@@ -1198,7 +1481,7 @@ def phase_wire(dev, out_root, film, card):
                     device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(eqm.launches)
+        launches = kernel_launches.snapshot()
         if launches != path_launches(n_blocks):
             raise AssertionError(f"wire {name}: kernel launches {launches}")
         with open(os.path.join(root, "777-data", "run_report.json")) as f:
@@ -1286,7 +1569,7 @@ def multi_rank(rank, device, film, n, train_kw):
     reset_launches()
     with torch.inference_mode():
         out = sharded_extract_step(detector, tcfg, frames.to(device))
-    launches = dict(eqm.launches)
+    launches = kernel_launches.snapshot()
     host = lambda t: t.cpu().numpy()
     sharded = {"flags": host(out.flags), "valid": host(out.detections.valid),
                "boxes": host(out.detections.boxes),
@@ -1360,7 +1643,7 @@ def check_sharded(ranks, flags, dets, dev, tcfg):
             "detections_equal": True, "tracker_box_max_abs_err": emit_err,
             "emitted": int(sum(r["emit"].sum() for r in ranks)),
             "launches": {k: sum(r["launches"][k] for r in ranks)
-                         for k in eqm.launches}}
+                         for k in kernel_launches.snapshot()}}
 
 
 def check_dp(ranks, want):
@@ -1442,7 +1725,7 @@ def phase_multi_device(dev, out_root, film, main_root, main_path, card,
     counters = run_extract_mesh(film, cfg, mesh, devices=[dev, dev],
                                 detector_weights=PROBE)
     mesh_wall = time.perf_counter() - t0
-    launches = dict(eqm.launches)
+    launches = kernel_launches.snapshot()
     with open(os.path.join(mesh, "777-data", "run_report.json")) as f:
         rep = json.load(f)["extract_mesh_2"]["counters"]
     if len(counters) != 2 or rep["steps"] != sum(span_blocks):
@@ -1496,7 +1779,7 @@ def phase_multi_device(dev, out_root, film, main_root, main_path, card,
     one = os.path.join(out_root, "mesh1")
     reset_launches()
     run_extract_mesh(film, cfg, one, mesh_size=1, detector_weights=PROBE)
-    mesh1_launches = dict(eqm.launches)
+    mesh1_launches = kernel_launches.snapshot()
     if read_outputs(one, 777) != read_outputs(main_root, 777):
         raise AssertionError("--mesh 1 files differ from phase 3's")
     if mesh1_launches != path_launches(blocks(n_frames)):
@@ -1566,7 +1849,7 @@ def soak_child(out_root: str, n_frames: int) -> None:
     report = run_soak(out_root, block_frames=128, checkpoint_every=16,
                       fetch_every=8, wire_format="yuv420-delta",
                       save_images=False, film=film, device=dev)
-    report.update(launches=dict(eqm.launches), paint_setup_seconds=paint)
+    report.update(launches=kernel_launches.snapshot(), paint_setup_seconds=paint)
     with open(os.path.join(out_root, "soak_child.json"), "w") as f:
         json.dump(report, f)
 
@@ -1723,8 +2006,13 @@ def main() -> int:
     rgb_rows = timed_phase("kernels_rgb", phase_rgb, dev, rate)
     with tempfile.TemporaryDirectory() as tmp:
         film = smoke_film()
+        tracker = timed_phase("tracker", phase_tracker, dev, film, card,
+                              rate)
         main_path = timed_phase("main_path", phase_main_path, dev,
                                 os.path.join(tmp, "main"), film)
+        torch.cuda.empty_cache()
+        device_step = timed_phase("device_step", phase_device_step, dev,
+                                  card)
         wire = timed_phase("wire", phase_wire, dev,
                            os.path.join(tmp, "wire"), film, card)
         pipeline = timed_phase("pipeline", phase_pipeline, dev,
@@ -1786,6 +2074,23 @@ def main() -> int:
         "ms": rgb["hist256_rgb_ms"], "plain_ms": rgb["hist256_rgb_plain_ms"],
         "bound_ms": rgb["hist256_rgb_bound_ms"], "bound_by": "bytes",
         "library_ms": None, "shape": rgb["shape"]})
+    kernels.append({
+        "name": "tracker_scan", "route": "cuda", "source": TRACKER_SOURCE,
+        "replaces": TRACKER_TPU,
+        "launches": main_path["launches"]["tracker"],
+        "pipeline_launches": pipeline["launches"]["tracker"],
+        "selfcheck_launches": train["launches"]["tracker"],
+        "wire_launches": {k: r["launches"]["tracker"]
+                          for k, r in wire["runs"].items()},
+        "soak_launches": soak["launches"]["tracker"],
+        **multi_launches(multi, "tracker"),
+        "device_step_launches_per_replay": {
+            k: r["launches_per_replay"]["tracker"]
+            for k, r in device_step["runs"].items()},
+        "max_abs_err": tracker["max_abs_err"], "ms": tracker["ms"],
+        "plain_ms": tracker["plain_ms"], "bound_ms": tracker["bound_ms"],
+        "bound_by": tracker["bound_by"], "library_ms": None,
+        "shape": [tracker["block_frames"], 16, 4]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -78,7 +78,10 @@ class ExtractConfig:
     # carries its own width, read back from its stem kernel).  96 is the
     # width of the committed probe detector.
     backbone_width: int = 96
-    # Not read by the port: it computes in float32 throughout.
+    # Not read by the port's extract, which computes in float32 (its
+    # files stay those of the JAX package's float32 path); the models
+    # take a reduced compute dtype through their ``dtype=`` argument
+    # (facerec_torch/benchdev.py runs them in bfloat16).
     compute_dtype: str = "bfloat16"
 
     # Parallel native decode workers (0 = FACEREC_DECODE_WORKERS, else

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facerec_torch.models.layers import Conv, ConvBN, init_weights
+from facerec_torch.models.layers import (Conv, ConvBN, cast_float_tree,
+                                         init_weights)
 from facerec_torch.ops.nms import nms
 from facerec_torch.runtime.device import resolve_device
 
@@ -114,8 +115,9 @@ class FaceDetector(nn.Module):
         for i, p in enumerate((p3, p4, p5)):
             head = getattr(self, f"head{i}")(getattr(self, f"ssh{i}")(p))
             b, _, hh, ww = head.shape
+            # the heads come back to float32 at any compute dtype
             head = head.permute(0, 2, 3, 1).reshape(
-                b, hh * ww * self.num_anchors, 15)
+                b, hh * ww * self.num_anchors, 15).float()
             outs.append({"score": head[..., 0], "box": head[..., 1:5],
                          "ldm": head[..., 5:15]})
         return outs
@@ -190,6 +192,20 @@ class Detections(NamedTuple):
     valid: torch.Tensor      # (B, D) bool
 
 
+@functools.lru_cache(maxsize=None)
+def _anchors_on(input_size: Tuple[int, int],
+                device: torch.device) -> torch.Tensor:
+    """:func:`anchor_centers` on ``device``, uploaded once (a block step
+    captured in a CUDA graph may not copy from the host)."""
+    return torch.from_numpy(anchor_centers(input_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_limits(w: int, h: int, device: torch.device) -> torch.Tensor:
+    """[w, h, w, h] as float32 on ``device``, uploaded once."""
+    return torch.tensor([w, h, w, h], dtype=torch.float32, device=device)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, ...) gathered at idx (B, K) along axis 1."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
@@ -219,15 +235,20 @@ class DetectorHarness:
 
     @classmethod
     def create(cls, seed: int = 0, backbone_width: int = 96, device=None,
+               dtype: torch.dtype = torch.float32,
                **kwargs) -> "DetectorHarness":
-        """Random-initialised harness (weights from ``seed``), on the
-        card unless ``device="cpu"`` is asked for."""
+        """Random-initialised harness (weights from ``seed``, drawn in
+        float32, then cast to the compute ``dtype``), on the card unless
+        ``device="cpu"`` is asked for."""
         model = FaceDetector(backbone_width=backbone_width)
         init_weights(model, torch.Generator().manual_seed(seed))
+        model = cast_float_tree(model, dtype)
         return cls(model=model.to(resolve_device(device)).eval(), **kwargs)
 
     @classmethod
-    def from_npz(cls, path: str, device=None, **kwargs) -> "DetectorHarness":
+    def from_npz(cls, path: str, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 **kwargs) -> "DetectorHarness":
         """Harness with the weights of a single-file Flax checkpoint
         (``facerec_tpu/models/weights.py:save_params_npz`` or
         :func:`facerec_torch.models.convert.save_params_npz`), on the
@@ -252,39 +273,51 @@ class DetectorHarness:
             tree["params"]["stem"]["Conv_0"]["kernel"]).shape[-1]))
         model = FaceDetector(**model_kwargs)
         model.load_state_dict(state_dict_from_flax(model, tree))
+        model = cast_float_tree(model, dtype)
         return cls(model=model.to(resolve_device(device)).eval(), **kwargs)
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the weights."""
+        return next(self.model.parameters()).dtype
+
     @torch.no_grad()
     def __call__(self, frames: torch.Tensor) -> Detections:
         """(B, H, W, 3) uint8 frames at display resolution, on the
-        model's device → detections in display coordinates."""
+        model's device → detections in display coordinates.  The
+        letterbox and the network run in the compute dtype; the decode,
+        the filters and NMS in float32.  No host read and no upload
+        after the first call at a shape."""
         b, h, w, _ = frames.shape
         ih, iw = self.input_size
         # never upscale: smaller frames are padded
         scale = min(1.0, ih / h, iw / w)
         sh, sw = int(round(h * scale)), int(round(w * scale))
 
+        dtype = self.dtype
         x = frames.to(torch.float32).permute(0, 3, 1, 2)
         if (sh, sw) != (h, w):
-            # jax.image.resize anti-aliases on a downscale
+            # jax.image.resize anti-aliases on a downscale.  At a
+            # reduced compute dtype the JAX package resizes in it; here
+            # the resize computes in float32 and its output is rounded
+            # to it (PyTorch has no bfloat16 anti-aliased resize on the
+            # CPU)
             x = F.interpolate(x, size=(sh, sw), mode="bilinear",
                               align_corners=False, antialias=True)
-        x = F.pad(x, (0, iw - sw, 0, ih - sh))
+        x = F.pad(x.to(dtype), (0, iw - sw, 0, ih - sh))
 
         # the padded batch viewed as NHWC pixels (no copy)
-        raw = self.model(normalize_images(x.permute(0, 2, 3, 1)))
-        anchors = torch.from_numpy(anchor_centers(self.input_size)).to(
-            frames.device)
+        raw = self.model(normalize_images(x.permute(0, 2, 3, 1), dtype))
+        anchors = _anchors_on(tuple(self.input_size), frames.device)
         scores, boxes, ldm_raw = decode_scores_boxes(raw, anchors)
         boxes = boxes / scale
         # clamp to the frame before the size filter
-        lim = torch.tensor([w, h, w, h], dtype=torch.float32,
-                           device=frames.device)
-        boxes = torch.minimum(boxes.clamp_min(0.0), lim)
+        boxes = torch.minimum(boxes.clamp_min(0.0),
+                              _frame_limits(w, h, frames.device))
 
         wh = torch.minimum(boxes[..., 2] - boxes[..., 0],
                            boxes[..., 3] - boxes[..., 1])

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facerec_torch.models.layers import BatchNorm, Conv, ConvBN, init_weights
+from facerec_torch.models.layers import (BatchNorm, Conv, ConvBN,
+                                         cast_float_tree, init_weights)
 from facerec_torch.runtime.device import resolve_device
 
 
@@ -163,11 +164,13 @@ class FaceNet(nn.Module):
 
     def bottleneck(self, feats: torch.Tensor) -> torch.Tensor:
         """The pooled path's bottleneck, written out in float32 as the
-        JAX package's pooled program does."""
+        JAX package's pooled program does (from the weights as stored,
+        so at a reduced compute dtype from their rounded values)."""
         bn = self.Bottleneck_BatchNorm
-        f = feats.to(torch.float32) @ self.Bottleneck.weight.T.to(
-            torch.float32)
-        return (f - bn.mean) * torch.rsqrt(bn.var + 1e-3) + bn.bias
+        f32 = torch.float32
+        f = feats.to(f32) @ self.Bottleneck.weight.T.to(f32)
+        return ((f - bn.mean.to(f32)) * torch.rsqrt(bn.var.to(f32) + 1e-3)
+                + bn.bias.to(f32))
 
 
 def prewhiten(crops: torch.Tensor,
@@ -193,24 +196,30 @@ def _nchw(crops: torch.Tensor) -> torch.Tensor:
 
 class FaceNetEmbedder:
     """One checkpoint: (N, 160, 160, 3) crops → (N, dim) unit vectors.
-    Weights from ``state_dict`` when given, else random from ``seed``;
-    on the card unless ``device="cpu"`` is asked for."""
+    Weights from ``state_dict`` when given, else random from ``seed``,
+    cast once to the compute ``dtype``; on the card unless
+    ``device="cpu"`` is asked for.  Prewhitening and the L2 norm run in
+    float32 at any compute dtype, as the JAX package's."""
 
     def __init__(self, name: str, embedding_dim: int, device=None,
                  seed: int = 0,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 dtype: torch.dtype = torch.float32):
         self.name = name
         self.embedding_dim = embedding_dim
+        self.dtype = dtype
         model = FaceNet(embedding_dim)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
+        model = cast_float_tree(model, dtype)
         self.model = model.to(resolve_device(device)).eval()
 
     @torch.no_grad()
     def __call__(self, crops: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(self.model(_nchw(crops)))
+        x = _nchw(crops).to(self.dtype)
+        return l2_normalize(self.model(x).to(torch.float32))
 
 
 class PooledEmbedders:
@@ -219,11 +228,14 @@ class PooledEmbedders:
     def __init__(self, embedders: Sequence[FaceNetEmbedder]):
         self.names: List[str] = [e.name for e in embedders]
         self.models: List[FaceNet] = [e.model for e in embedders]
+        self.dtypes: List[torch.dtype] = [e.dtype for e in embedders]
 
     @torch.no_grad()
     def __call__(self, crops: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """(N, 160, 160, 3) → tuple of (N, dim_i) unit embeddings."""
+        """(N, 160, 160, 3) → tuple of (N, dim_i) unit embeddings: each
+        backbone in its compute dtype, pooled back to float32."""
         x = _nchw(crops)
-        return tuple(l2_normalize(m.bottleneck(m.pooled(x)))
-                     for m in self.models)
+        return tuple(
+            l2_normalize(m.bottleneck(m.pooled(x.to(d)).to(torch.float32)))
+            for m, d in zip(self.models, self.dtypes))
 

@@ -140,6 +140,14 @@ class ConvBN(nn.Module):
         return F.relu(x) if self.act else x
 
 
+def cast_float_tree(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast a module's floating parameters and buffers to the compute
+    dtype ONCE, in place, as the JAX package pre-casts its parameter
+    trees (``facerec_tpu/models/facenet.py:cast_float_tree``); float32
+    is a no-op.  Returns the module."""
+    return module if dtype == torch.float32 else module.to(dtype)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random initialisation from ``generator``: every conv and dense
     weight normal with variance 1/fan_in (LeCun), biases 0, batch-norm

@@ -77,7 +77,8 @@ def resolve_facenet_params(weights_dir: str, name: str) -> dict:
 
 def load_facenet_embedders(weights_dir: str,
                            names: Sequence[str] = FACENET_MODELS,
-                           device=None, missing_ok: bool = True
+                           device=None, missing_ok: bool = True,
+                           dtype: torch.dtype = torch.float32
                            ) -> Dict[str, FaceNetEmbedder]:
     """name → FaceNetEmbedder with imported weights, for every name, on
     the card unless ``device="cpu"`` is asked for.
@@ -113,13 +114,13 @@ def load_facenet_embedders(weights_dir: str,
             state = convert.facenet_state_dict(found[name],
                                                FACENET_DIMS[name])
             out[name] = FaceNetEmbedder(name, FACENET_DIMS[name], device,
-                                        state_dict=state)
+                                        state_dict=state, dtype=dtype)
         else:
             warn_random_init(
                 f"FaceNet checkpoint '{name}'",
                 f"a {name}.pt/.h5/.npz in {weights_dir!r}")
             out[name] = FaceNetEmbedder(name, FACENET_DIMS[name], device,
-                                        seed=i)
+                                        seed=i, dtype=dtype)
     return out
 
 

@@ -24,6 +24,15 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# flags of one source only: the tracker rounds every float expression
+# as its plain version's separate tensor operations do (no contraction
+# of a multiply and an add into one fma)
+EXTRA_FLAGS = {"tracker": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -52,7 +61,7 @@ def library_path(name: str) -> str:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            f.read() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
@@ -66,7 +75,7 @@ def build(name: str, verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS]
+    cmd = [find_nvcc(), *flags(name)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]

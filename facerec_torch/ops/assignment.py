@@ -9,11 +9,16 @@ genuine conflict.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 
 _INF = 3.0e38
+
+# Associations that took the exact solve (one per frame that reached it;
+# the plain tracker's frames).  The tracker's tests and chip_smoke.py
+# read it to show that a stream really exercises the solver.
+solves: Dict[str, int] = {"jv": 0}
 
 
 def solve_lap_min(cost: torch.Tensor) -> torch.Tensor:
@@ -102,6 +107,7 @@ def associate(iou: torch.Tensor, det_valid: torch.Tensor,
     utility = torch.where(pair_ok, iou, -1.0)
 
     def solve() -> torch.Tensor:
+        solves["jv"] += 1
         padded = torch.full((k, k), -2.0, dtype=torch.float32,
                             device=iou.device)
         padded[:d, :t] = utility

@@ -46,8 +46,12 @@ def crop_resize(frames: torch.Tensor, frame_idx: torch.Tensor,
     rx = _axis_weights(src_x, w)                      # (N, S, W)
     ry = _axis_weights(src_y, h)                      # (N, S, H)
 
-    g = frames[frame_idx.long()].to(torch.float32)    # (N, H, W, C)
+    # contract W, then H, each as one batched product: no weight is
+    # broadcast over the other axis (an (N, H, S, W) tensor is 16.9 GiB
+    # at 64 crops of 576x768); the frames are transposed before the cast
+    g = frames[frame_idx.long()]                      # (N, H, W, C)
     n, c = g.shape[0], g.shape[3]
-    cols = rx[:, None] @ g                            # (N, H, S, C)
-    out = ry @ cols.reshape(n, h, s * c)              # (N, S, S*C)
+    gw = g.transpose(1, 2).reshape(n, w, h * c).to(torch.float32)
+    cols = (rx @ gw).reshape(n, s, h, c)              # (N, S, H, C)
+    out = ry @ cols.transpose(1, 2).reshape(n, h, s * c)   # (N, S, S*C)
     return out.reshape(n, s, s, c)

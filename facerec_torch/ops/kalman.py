@@ -68,6 +68,15 @@ def predict(state: KalmanState) -> KalmanState:
     return KalmanState(x, p)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` summed in index order, without fused
+    multiply-adds (a product of a library fixes no summation order)."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
 def _inv2(m: torch.Tensor) -> torch.Tensor:
     """Batched closed-form 2×2 inverse."""
     a, b = m[..., 0, 0], m[..., 0, 1]
@@ -86,11 +95,12 @@ def inv4(s: torch.Tensor) -> torch.Tensor:
     c = s[..., 2:, :2]
     d = s[..., 2:, 2:]
     ai = _inv2(a)
-    aib = ai @ b
-    si = _inv2(d - c @ aib)
-    tl = ai + aib @ si @ (c @ ai)
-    tr = -aib @ si
-    bl = -si @ (c @ ai)
+    aib = _mm(ai, b)
+    si = _inv2(d - _mm(c, aib))
+    ca = _mm(c, ai)
+    tl = ai + _mm(_mm(aib, si), ca)
+    tr = _mm(-aib, si)
+    bl = _mm(-si, ca)
     return torch.cat([torch.cat([tl, tr], -1),
                       torch.cat([bl, si], -1)], -2)
 
@@ -104,13 +114,15 @@ def update(state: KalmanState, z: torch.Tensor,
     r = _const(R_NP, x)
     eye = torch.eye(DIM_X, dtype=torch.float32, device=x.device)
 
+    # H selects: the products by H are exact
     y = z - x @ h.T                                    # innovation
     s = h @ p @ h.T + r                                # (T, 4, 4)
-    k = p @ h.T @ inv4(s)                              # (T, 8, 4)
+    k = _mm(p @ h.T, inv4(s))                          # (T, 8, 4)
 
-    x_post = x + (k @ y[..., None])[..., 0]
+    x_post = x + _mm(k, y[..., None])[..., 0]
     ikh = eye - k @ h
-    p_post = ikh @ p @ ikh.transpose(1, 2) + k @ r @ k.transpose(1, 2)
+    p_post = (_mm(_mm(ikh, p), ikh.transpose(1, 2))
+              + _mm(_mm(k, r), k.transpose(1, 2)))
 
     m = mask[:, None]
     return KalmanState(x=torch.where(m, x_post, x),

@@ -37,6 +37,8 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         sel.append(scores_cur[rows, i])
         overlap = iou_broadcast(boxes[rows, i][:, None, :], boxes)
         scores_cur = torch.where(overlap > iou_threshold, _NEG, scores_cur)
-        scores_cur[rows, i] = _NEG       # always drop the selected box
+        # always drop the selected box (a scalar scatter: no host value
+        # crosses to the card, so a CUDA graph can capture the step)
+        scores_cur = scores_cur.scatter(1, i[:, None], _NEG)
         idx.append(i)
     return torch.stack(idx, 1), torch.stack(sel, 1) > _NEG / 2

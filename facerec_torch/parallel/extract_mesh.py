@@ -32,7 +32,7 @@ import torch
 from facerec_torch.config import ExtractConfig
 from facerec_torch.contract import MovieDirs
 from facerec_torch.contract.naming import movie_id_from_filename
-from facerec_torch.ops import equalize as eqm
+from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.parallel.mesh import mesh_devices, run_ranks
 from facerec_torch.pipeline.extract import (EmbedderBank, ExtractCounters,
                                             build_detector, build_embedders,
@@ -84,7 +84,7 @@ def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
                  facenet_weights):
     """Span ``spans[rank]`` on ``device``: build (or load) the detector
     and bank there, run the serial loop; returns (counters, blocks,
-    phase seconds, the scene kernels' launches)."""
+    phase seconds, the kernels' launches)."""
     beg, end, stop = spans[rank]
     load = lambda b: torch.load(io.BytesIO(b), map_location=device,
                                 weights_only=False)
@@ -95,7 +95,8 @@ def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
                  else build_embedders(facenet_weights, device))
     run = run_span(film, info, cfg, dirs, movie_id, beg, end, stop, detector,
                    embedders, device, spans=n)
-    return run.counters, run.blocks, run.phase, dict(eqm.launches)
+    return (run.counters, run.blocks, run.phase,
+            kernel_launches.snapshot())
 
 
 def run_extract_mesh(
@@ -165,8 +166,7 @@ def run_extract_mesh(
 
     counters = [r[0] for r in results]
     for _, _, _, launches in results:
-        for k, v in launches.items():
-            eqm.launches[k] += v
+        kernel_launches.add(launches)
     total = ExtractCounters(**{
         f.name: sum(getattr(c, f.name) for c in counters)
         for f in dataclasses.fields(ExtractCounters)})

@@ -137,20 +137,25 @@ class EmbedderBank:
         self.supports_deferred = True
 
     @classmethod
-    def create_default(cls, device: torch.device) -> "EmbedderBank":
+    def create_default(cls, device: torch.device,
+                       dtype: torch.dtype = torch.float32
+                       ) -> "EmbedderBank":
         """The four reference checkpoints, random-initialised from
-        seeds 0..3 (no weight files ship with the repo)."""
+        seeds 0..3 (no weight files ship with the repo), computing in
+        ``dtype``."""
         return cls({
             name: FaceNetEmbedder(name, FACENET_DIMS[name], device=device,
-                                  seed=i)
+                                  seed=i, dtype=dtype)
             for i, name in enumerate(FACENET_MODELS)})
 
     @classmethod
-    def from_weights(cls, weights_dir: str,
-                     device: torch.device) -> "EmbedderBank":
+    def from_weights(cls, weights_dir: str, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> "EmbedderBank":
         """The four checkpoints from a weights directory
-        (:func:`facerec_torch.models.load.load_facenet_embedders`)."""
-        return cls(load_facenet_embedders(weights_dir, device=device))
+        (:func:`facerec_torch.models.load.load_facenet_embedders`),
+        computing in ``dtype``."""
+        return cls(load_facenet_embedders(weights_dir, device=device,
+                                          dtype=dtype))
 
     def dispatch_packed(self, crops: torch.Tensor) -> torch.Tensor:
         """Embed a crop batch with every checkpoint, ``EMBED_BATCH``

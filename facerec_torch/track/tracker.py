@@ -1,26 +1,39 @@
 """SORT as a fixed-capacity track table advanced one frame at a time.
 
 Port of ``facerec_tpu/track/tracker.py``.  The table — (T,) state
-vectors plus a batched Kalman state — lives on the tracker's device;
-:func:`run_block` is a Python loop over the block's frames in place of
-``lax.scan``.  Lifecycle rules are those of the JAX package: scene-cut
-kill before the frame's predict, the ``min_hits`` starting rule,
-``max_age`` expiry and posterior-vs-prior history entries.
+vectors plus a batched Kalman state — lives on the tracker's device.
+Lifecycle rules are those of the JAX package: scene-cut kill before the
+frame's predict, the ``min_hits`` starting rule, ``max_age`` expiry and
+posterior-vs-prior history entries.
 
-Each frame runs about a hundred small tensor operations, so on the card
-the scan is bound by kernel launches (its time per block is recorded in
-PERF.md).
+:func:`run_block` scans a block of frames.  On a card it is one launch
+of the hand-written kernel ``tracker_scan`` (``csrc/tracker.cu``),
+which keeps the whole frame loop on the chip; on the CPU it is
+:func:`run_block_plain`, a Python loop of :func:`step` over the frames
+in place of ``lax.scan`` and the kernel's plain version (about a
+hundred small tensor operations per frame, and host reads that steer
+the association: on a card it is bound by the host).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
-from facerec_torch.ops import assignment, boxes, kalman
+from facerec_torch.ops import _build, assignment, boxes, kalman
 
 _I32 = torch.int32
+# the kernel's capacity: a lane per track slot and per detection
+MAX_LANES = 32
+
+# Launches of the tracker_scan kernel; chip_smoke.py zeroes it before
+# the main path and reads it after.
+launches: Dict[str, int] = {"tracker": 0}
+
+_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,19 +183,36 @@ def step(cfg: TrackerConfig, state: TrackerState, det_boxes: torch.Tensor,
 
 def run_block(cfg: TrackerConfig, state: TrackerState,
               det_boxes: torch.Tensor, det_valid: torch.Tensor,
-              scene_changes: torch.Tensor, frame0: int
+              scene_changes: torch.Tensor,
+              frame0: Union[int, torch.Tensor]
               ) -> Tuple[TrackerState, TrackEmit]:
-    """Run the tracker over a block of frames.
+    """Run the tracker over a block of frames: the ``tracker_scan``
+    kernel on CUDA tensors, :func:`run_block_plain` on CPU tensors.
 
     Args:
         det_boxes: (B, D, 4) float32.
         det_valid: (B, D) bool.
         scene_changes: (B,) bool.
-        frame0: global index of the block's first frame.
+        frame0: global index of the block's first frame (an int, or a
+            () int32 tensor on the detections' device).
 
     Returns:
         (new_state, emissions with a leading (B,) axis on every field).
     """
+    if det_boxes.device.type == "cuda":
+        return run_block_cuda(cfg, state, det_boxes, det_valid,
+                              scene_changes, frame0)
+    return run_block_plain(cfg, state, det_boxes, det_valid, scene_changes,
+                           frame0)
+
+
+def run_block_plain(cfg: TrackerConfig, state: TrackerState,
+                    det_boxes: torch.Tensor, det_valid: torch.Tensor,
+                    scene_changes: torch.Tensor,
+                    frame0: Union[int, torch.Tensor]
+                    ) -> Tuple[TrackerState, TrackEmit]:
+    """The plain version of ``tracker_scan``: :func:`step` frame by
+    frame, on any device (arguments as :func:`run_block`'s)."""
     frame0 = int(frame0)
     emits = []
     for i in range(det_boxes.shape[0]):
@@ -190,3 +220,120 @@ def run_block(cfg: TrackerConfig, state: TrackerState,
                         scene_changes[i], frame0 + i)
         emits.append(e)
     return state, TrackEmit(*(torch.stack(f) for f in zip(*emits)))
+
+
+def check_scan_shapes(cfg: TrackerConfig, det_boxes: torch.Tensor) -> None:
+    """The kernel's limits: T and D in 1..32 (a lane per slot and per
+    detection), (B, D, 4) boxes."""
+    if det_boxes.dim() != 3 or det_boxes.shape[-1] != 4:
+        raise ValueError(f"expected (B, D, 4) detections, got "
+                         f"{tuple(det_boxes.shape)}")
+    t, d = cfg.max_tracks, det_boxes.shape[1]
+    if not (1 <= t <= MAX_LANES and 1 <= d <= MAX_LANES):
+        raise ValueError(
+            f"tracker_scan takes 1..{MAX_LANES} track slots and "
+            f"detections per frame, got T={t}, D={d}")
+
+
+class _ScanArgs(ctypes.Structure):
+    """``ScanArgs`` of ``csrc/tracker.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "det_boxes", "det_valid", "scene", "frame0", "x", "p", "active",
+        "uid", "first_frame", "hist_len", "tsu", "hits", "initial_hits",
+        "next_uid", "x_out", "p_out", "active_out", "uid_out",
+        "first_frame_out", "hist_len_out", "tsu_out", "hits_out",
+        "initial_hits_out", "next_uid_out", "e_box", "e_emit",
+        "e_detected", "e_uid", "e_first_frame", "e_det_slot",
+        "e_overflow")]
+        + [(n, ctypes.c_int) for n in (
+            "frames", "tracks", "dets", "max_age", "min_hits")]
+        + [("iou_threshold", ctypes.c_float),
+           ("q", ctypes.c_float * 8), ("p0", ctypes.c_float * 8),
+           ("r", ctypes.c_float * 4)])
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("tracker")
+        lib.fr_tracker_scan.argtypes = [ctypes.POINTER(_ScanArgs),
+                                        ctypes.c_void_p]
+        lib.fr_tracker_scan.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _arg(t: torch.Tensor, dtype: torch.dtype, shape, dev, what: str
+         ) -> torch.Tensor:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != dev:
+        raise ValueError(f"tracker_scan: {what} must be {dtype} "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def run_block_cuda(cfg: TrackerConfig, state: TrackerState,
+                   det_boxes: torch.Tensor, det_valid: torch.Tensor,
+                   scene_changes: torch.Tensor,
+                   frame0: Union[int, torch.Tensor]
+                   ) -> Tuple[TrackerState, TrackEmit]:
+    """Kernel ``tracker_scan``: :func:`run_block` on CUDA tensors in one
+    launch on the current stream.  No host read and no host→device copy
+    (an int ``frame0`` is filled in on the card), so a CUDA graph can
+    capture it."""
+    check_scan_shapes(cfg, det_boxes)
+    dev = det_boxes.device
+    if dev.type != "cuda":
+        raise ValueError(f"tracker_scan takes CUDA tensors, got {dev}")
+    b, d, _ = det_boxes.shape
+    t = cfg.max_tracks
+    f32, u8 = torch.float32, torch.uint8
+    as_u8 = lambda x, shape, what: _arg(x, torch.bool, shape, dev,
+                                        what).view(u8)
+    with torch.cuda.device(dev):
+        if not isinstance(frame0, torch.Tensor):
+            frame0 = torch.full((), int(frame0), dtype=_I32, device=dev)
+        ins = [_arg(det_boxes, f32, (b, d, 4), dev, "det_boxes"),
+               as_u8(det_valid, (b, d), "det_valid"),
+               as_u8(scene_changes, (b,), "scene_changes"),
+               _arg(frame0, _I32, (), dev, "frame0"),
+               _arg(state.kf.x, f32, (t, 8), dev, "kf.x"),
+               _arg(state.kf.p, f32, (t, 8, 8), dev, "kf.p"),
+               as_u8(state.active, (t,), "active")]
+        ins += [_arg(getattr(state, n), _I32, (t,), dev, n) for n in (
+            "uid", "first_frame", "hist_len", "tsu", "hits", "initial_hits")]
+        ins.append(_arg(state.next_uid, _I32, (), dev, "next_uid"))
+        new = TrackerState(
+            kf=kalman.KalmanState(torch.empty((t, 8), dtype=f32, device=dev),
+                                  torch.empty((t, 8, 8), dtype=f32,
+                                              device=dev)),
+            active=torch.empty((t,), dtype=torch.bool, device=dev),
+            **{n: torch.empty((t,), dtype=_I32, device=dev) for n in (
+                "uid", "first_frame", "hist_len", "tsu", "hits",
+                "initial_hits")},
+            next_uid=torch.empty((), dtype=_I32, device=dev))
+        emit = TrackEmit(
+            box=torch.empty((b, t, 4), dtype=f32, device=dev),
+            emit=torch.empty((b, t), dtype=torch.bool, device=dev),
+            detected=torch.empty((b, t), dtype=torch.bool, device=dev),
+            uid=torch.empty((b, t), dtype=_I32, device=dev),
+            first_frame=torch.empty((b, t), dtype=_I32, device=dev),
+            det_slot=torch.empty((b, d), dtype=_I32, device=dev),
+            overflow=torch.empty((b,), dtype=_I32, device=dev))
+        outs = [new.kf.x, new.kf.p, new.active, new.uid, new.first_frame,
+                new.hist_len, new.tsu, new.hits, new.initial_hits,
+                new.next_uid, *emit]
+        args = _ScanArgs(
+            *(x.data_ptr() for x in ins + outs), b, t, d, cfg.max_age,
+            cfg.min_hits, cfg.iou_threshold,
+            (ctypes.c_float * 8)(*np.diag(kalman.Q_NP)),
+            (ctypes.c_float * 8)(*np.diag(kalman.P0_NP)),
+            (ctypes.c_float * 4)(*np.diag(kalman.R_NP)))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel().fr_tracker_scan(ctypes.byref(args), stream)
+    if err:
+        raise RuntimeError(f"tracker_scan launch failed: cudaError {err}")
+    launches["tracker"] += 1
+    return new, emit

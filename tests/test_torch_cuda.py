@@ -231,3 +231,61 @@ def test_grouped_rgb_delta_extract_card_equals_cpu(card, tmp_path):
         assert a == b
         for k in ea:
             np.testing.assert_allclose(ea[k], eb[k], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("stream,max_tracks,d", [
+    ("crossing", 32, 16),          # collisions and ties: the JV solve
+    ("simulate", 3, 8),            # D > T: overflow, every frame solves
+    ("simulate", 16, 8)])          # the fast path, scene cuts
+def test_tracker_kernel_equals_plain(card, stream, max_tracks, d):
+    """tracker_scan launches once per block and equals run_block_plain
+    on the card: integer emissions and state exact, boxes and the Kalman
+    state within 1e-4."""
+    from facerec_torch.track import TrackerConfig, init_tracker
+    from facerec_torch.track import streams
+    from facerec_torch.track import tracker as trk
+
+    rng = np.random.default_rng(0)
+    det_stream, cuts = (streams.crossing_stream(rng) if stream == "crossing"
+                        else streams.simulate_stream(rng, n_frames=60,
+                                                     p_cut=0.05))
+    bx, valid = streams.stream_arrays(det_stream, d)
+    cfg = TrackerConfig(max_tracks=max_tracks, max_detections=d)
+    state, plain = init_tracker(cfg, card), init_tracker(cfg, card)
+    for f0 in range(0, len(det_stream), 40):
+        args = [torch.from_numpy(np.ascontiguousarray(a[f0:f0 + 40])).to(card)
+                for a in (bx, valid, cuts)]
+        before = trk.launches["tracker"]
+        state, emit = trk.run_block(cfg, state, *args, f0)
+        assert trk.launches["tracker"] == before + 1
+        plain, want = trk.run_block_plain(cfg, plain, *args, f0)
+        for k in ("emit", "detected", "uid", "first_frame", "det_slot",
+                  "overflow"):
+            assert torch.equal(getattr(emit, k), getattr(want, k)), k
+        for k in ("active", "uid", "first_frame", "hist_len", "tsu", "hits",
+                  "initial_hits", "next_uid"):
+            assert torch.equal(getattr(state, k), getattr(plain, k)), k
+        for a, b in ((emit.box, want.box), (state.kf.x, plain.kf.x),
+                     (state.kf.p, plain.kf.p)):
+            assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_device_step_replay_equals_eager(card):
+    """A small make_device_step captured as one CUDA graph: a replay
+    equals an eager step on the same inputs and launches each kernel
+    once."""
+    from facerec_torch.benchdev import make_device_step
+    from facerec_torch.models.facenet import FaceNetEmbedder
+    from facerec_torch.pipeline.extract import EmbedderBank
+
+    bank = EmbedderBank({"a": FaceNetEmbedder("a", 128, card,
+                                              dtype=torch.bfloat16)})
+    step, args = make_device_step((64, 96), 8, 96, 128, 4, bank=bank,
+                                  device=card)
+    want = step.eager(*args)
+    got = step(*args)
+    assert step.replays == 1
+    assert step.captured_launches == {"hist256": 0, "hist256_rgb": 1,
+                                      "cum_lookup": 1, "tracker": 1}
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    assert torch.equal(got[2].uid, want[2].uid)

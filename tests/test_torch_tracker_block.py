@@ -15,8 +15,11 @@ from facerec_tpu.track import init_tracker as jax_init_tracker
 from facerec_tpu.track import run_block as jax_run_block
 from tests.test_tracker import simulate_stream
 
+from facerec_torch.ops import _build, assignment
 from facerec_torch.track import (TrackerConfig, TrajectoryAssembler,
                                  init_tracker, run_block)
+from facerec_torch.track import streams
+from facerec_torch.track import tracker as trk
 
 BOX_ATOL = 1e-4
 
@@ -89,3 +92,77 @@ def test_overflow_counted():
                         torch.ones((1, 4), dtype=torch.bool),
                         torch.zeros((1,), dtype=torch.bool), 0)
     assert int(emit.overflow[0]) == 2
+
+
+def test_cpu_tensors_take_the_plain_loop_and_load_no_kernel():
+    """run_block on CPU tensors is run_block_plain, bit for bit; it
+    neither builds nor loads the tracker_scan library, nor counts a
+    launch."""
+    rng = np.random.default_rng(4)
+    det_stream, cuts = simulate_stream(rng, n_frames=24, p_cut=0.05)
+    bx, valid = _stream_arrays(det_stream, 8)
+    cfg = TrackerConfig(max_tracks=16, max_detections=8)
+    before = dict(trk.launches)
+    args = (t(bx), t(valid), t(cuts), 5)
+    state, emit = run_block(cfg, init_tracker(cfg), *args)
+    p_state, p_emit = trk.run_block_plain(cfg, init_tracker(cfg), *args)
+    for got, want in zip(list(emit) + list(state[1:]),
+                         list(p_emit) + list(p_state[1:])):
+        assert torch.equal(got, want)
+    assert torch.equal(state.kf.x, p_state.kf.x)
+    assert torch.equal(state.kf.p, p_state.kf.p)
+    assert trk.launches == before
+    assert trk._lib is None and "tracker" not in _build._loaded
+
+
+@pytest.mark.parametrize("t_slots,d,ok", [
+    (32, 16, True), (32, 32, True), (1, 1, True),
+    (33, 16, False), (32, 33, False), (0, 8, False)])
+def test_kernel_shape_limits(t_slots, d, ok):
+    """tracker_scan takes 1..32 slots and detections (a lane each);
+    the wrapper refuses the rest before any launch."""
+    cfg = TrackerConfig(max_tracks=t_slots, max_detections=d)
+    boxes = torch.zeros((4, d, 4))
+    if ok:
+        trk.check_scan_shapes(cfg, boxes)
+    else:
+        with pytest.raises(ValueError, match="1..32"):
+            trk.check_scan_shapes(cfg, boxes)
+
+
+def test_port_stream_is_the_jax_tests_stream():
+    """chip_smoke.py replays the CPU tests' stream from the port's copy
+    of ``simulate_stream``."""
+    for seed in range(4):
+        want = simulate_stream(np.random.default_rng(seed), n_frames=60,
+                               p_cut=0.05)
+        got = streams.simulate_stream(np.random.default_rng(seed),
+                                      n_frames=60, p_cut=0.05)
+        np.testing.assert_array_equal(got[1], want[1])
+        assert len(got[0]) == len(want[0])
+        for g, w in zip(got[0], want[0]):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("stream,max_tracks,d,least", [
+    ("crossing", 32, 16, 40),       # collisions and ties at T = 32
+    ("simulate", 3, 8, 60),         # D > T: every frame solves
+])
+def test_streams_reach_the_solver(stream, max_tracks, d, least):
+    """The streams that chip_smoke.py holds the kernel to its plain
+    version on send frames to the JV solve in the plain version."""
+    if stream == "crossing":
+        det_stream, cuts = streams.crossing_stream(np.random.default_rng(0))
+    else:
+        det_stream, cuts = streams.simulate_stream(
+            np.random.default_rng(3), n_frames=60, p_cut=0.05)
+    bx, valid = streams.stream_arrays(det_stream, d)
+    cfg = TrackerConfig(max_tracks=max_tracks, max_detections=d)
+    assignment.solves["jv"] = 0
+    state = init_tracker(cfg)
+    for f0 in range(0, len(det_stream), 128):
+        sl = slice(f0, f0 + 128)
+        state, emit = trk.run_block_plain(cfg, state, t(bx[sl]),
+                                          t(valid[sl]), t(cuts[sl]), f0)
+    assert assignment.solves["jv"] >= least
+    assert int(state.next_uid) > 0
