@@ -50,7 +50,8 @@ from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.runtime.device import resolve_device
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
 from facerec_torch.track import tracker as trk
-from facerec_torch.track.streams import (crossing_stream, simulate_stream,
+from facerec_torch.track.streams import (CROWDS, crossing_stream,
+                                         crowd_stream, simulate_stream,
                                          stream_arrays)
 from facerec_torch.video.synth import (ScriptedDetector, make_frames,
                                        paint_frames)
@@ -113,16 +114,15 @@ def time_ms(fn, reps: int = 10, trials: int = 5, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_profile(fn):
-    """(device activities, their summed device ms, wall ms) of one
-    ``fn()`` under torch.profiler: kernels, copies and memsets on the
-    card.  A window that comes back without device activities is
-    measured once more: on an H100 with torch 2.11, a window that
-    followed one of ~10^4 activities or more sometimes came back
-    empty."""
+def device_events(fn, tries: int = 4):
+    """torch.profiler's device activities (kernels, copies, memsets) of
+    one ``fn()``, and the wall ms of that window.  A window that comes
+    back without device activities is measured again, up to ``tries``
+    times: on an H100 with torch 2.11, windows sometimes came back empty
+    (after one of ~10^4 activities, and for a single short launch)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(tries):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -134,7 +134,22 @@ def device_profile(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if evs:
             break
-    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3, wall
+    return evs, wall
+
+
+def device_profile(fn):
+    """(device activities, their summed device ms, wall ms) of one
+    ``fn()`` under torch.profiler (:func:`device_events`); the device ms
+    is None (not measured) where every window came back empty."""
+    evs, wall = device_events(fn)
+    dev_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3 if evs \
+        else None
+    return len(evs), dev_ms, wall
+
+
+def busy(dev_ms, wall_ms):
+    """Device ms over wall ms; None where the device ms is."""
+    return None if dev_ms is None else dev_ms / wall_ms
 
 
 def make_plane(shape, real_rows, seed, dev):
@@ -455,8 +470,9 @@ def phase_main_path(dev, out_root, film):
         }
         flags, _ = stages["scene"]()
         det = stages["detector"]()
+        tstate = init_tracker(tcfg, dev)   # extract carries it over blocks
         stages["tracker"] = lambda: run_block(
-            tcfg, init_tracker(tcfg, dev), det.boxes, det.valid, flags, 0)
+            tcfg, tstate, det.boxes, det.valid, flags, 0)
         stages["crop_embed"] = lambda: embedders.dispatch_crop_embed(
             frames, fidx, boxes)
         block_ms, block_device = {}, {}
@@ -465,7 +481,7 @@ def phase_main_path(dev, out_root, film):
             n_dev, dev_ms, _ = device_profile(fn)
             block_device[key] = {
                 "device_activities": n_dev, "device_ms": dev_ms,
-                "busy_share": dev_ms / block_ms[key]}
+                "busy_share": busy(dev_ms, block_ms[key])}
     block_ms["crop_embed_crops"] = n_crops
     crop_peak = crop_peak_bytes(dev)
     if crop_peak >= 1 << 30:
@@ -514,8 +530,10 @@ def tracker_cases(dev, film, cfg):
     phase 3's detections over both blocks (the probe detector, the
     scene flags), the CPU tests' ``simulate_stream`` streams (cuts;
     overflow at T = 3, where D > T sends every frame to the solver),
-    and crossing tracks with duplicated detections (collisions and
-    ties: the solver at T = 32, D = 16)."""
+    crossing tracks with duplicated detections (collisions and ties: the
+    solver at T = 32, D = 16), and the crowds past 32 slots (crowd48 at
+    T = 64 and at T = 40, where D = 48 > T sends every frame to the
+    solver on K = 48; crowd120 at T = D = 128, the kernel's limit)."""
     detector = probe_detector(dev, film.height, film.width, cfg)
     state = scene_ops.initial_state(film.height, film.width, device=dev)
     main = []
@@ -537,6 +555,12 @@ def tracker_cases(dev, film, cfg):
     cases.append(("crossing", TrackerConfig(max_tracks=32,
                                             max_detections=16),
                   stream_blocks(stream, cuts, 16, 128, dev)))
+    for crowd, t, d in (("crowd48", 64, 48), ("crowd48", 40, 48),
+                        ("crowd120", 128, 128)):
+        stream, cuts = crowd_stream(np.random.default_rng(0), **CROWDS[crowd])
+        cases.append((f"{crowd}_T{t}", TrackerConfig(max_tracks=t,
+                                                     max_detections=d),
+                      stream_blocks(stream, cuts, d, 128, dev)))
     return cases
 
 
@@ -554,7 +578,7 @@ STATE_INTS = ("active", "uid", "first_frame", "hist_len", "tsu", "hits",
 
 def compare_scans(got, want, what):
     """Integer emissions and state exact; boxes and the Kalman state's
-    largest absolute difference (returned)."""
+    largest absolute difference (returned; a NaN counts as infinite)."""
     err = 0.0
     for i, ((gs, ge), (ws, we)) in enumerate(zip(got, want)):
         for k in INT_EMIT:
@@ -565,22 +589,55 @@ def compare_scans(got, want, what):
                 raise AssertionError(f"tracker {what} block {i}: state {k}")
         for a, b in ((ge.box, we.box), (gs.kf.x, ws.kf.x),
                      (gs.kf.p, ws.kf.p)):
-            err = max(err, float((a - b).abs().max()))
+            err = max(err, float((a - b).abs().nan_to_num(float("inf"))
+                                 .max()))
     return err
 
 
-def d2h_copies(fn):
-    """Device→host copies that ``fn()`` makes, by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+def host_call_ms(fn, calls: int = 200) -> float:
+    """Host ms of one ``fn()``: the wall of ``calls`` calls without a
+    synchronise, over the count (the card's work queues behind)."""
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    for _ in range(calls):
         fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "DtoH" in e.name)
+    ms = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def tracker_clocks(tcfg, blocks, dev):
+    """Per-phase SM cycles per frame of ``tracker_scan``'s measuring
+    build (``csrc/tracker.cu -DFR_TRACKER_CLOCKS``) over ``blocks``,
+    median and mean over the frames (the median of the frames' sums as
+    ``total``); its emissions must equal the kernel's."""
+    state, want, clocks = init_tracker(tcfg, dev), [], []
+    for bx, va, fl, f0 in blocks:
+        state, emit, c = trk.run_block_clocks(tcfg, state, bx, va, fl, f0)
+        want.append((state, emit))
+        clocks.append(c)
+    err = compare_scans(want, scan(trk.run_block, tcfg, blocks, dev),
+                        "clocks")
+    if err:
+        raise AssertionError(f"tracker_clocks differs from the kernel: {err}")
+    c = torch.cat(clocks).cpu().numpy()
+    return {"frames": len(c),
+            "median": dict(zip(trk.CLOCK_PHASES,
+                               np.median(c, axis=0).tolist())),
+            "mean": dict(zip(trk.CLOCK_PHASES, c.mean(axis=0).tolist())),
+            "total_median": float(np.median(c.sum(axis=1))),
+            "total_mean": float(c.sum(axis=1).mean())}
+
+
+def d2h_copies(fn):
+    """Device→host copies that ``fn()`` makes, by torch.profiler; a
+    window that saw no device activity at all raises (it would count 0
+    copies without having seen the call)."""
+    evs, _ = device_events(fn)
+    if not evs:
+        raise AssertionError("torch.profiler saw no device activity")
+    return sum(1 for e in evs if "DtoH" in e.name)
 
 
 def tracker_bound(tcfg, boxes, emit, rate):
@@ -601,13 +658,62 @@ def tracker_bound(tcfg, boxes, emit, rate):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def graph_ms(fn, calls: int = 10, trials: int = 5) -> float:
+    """Device ms of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph, its replays timed with CUDA events (no host work between the
+    kernels), the median over ``trials``, over the count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(trials + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times[1:]))
+
+
+def tracker_timing(tcfg, block, dev, rate):
+    """``tracker_scan`` on one block from a fresh state: the kernel's
+    device ms (graph replays) and µs per frame, the wrapper's host ms a
+    call, back-to-back eager calls' ms, and the bound."""
+    bx, va, fl, f0 = block
+    state0 = init_tracker(tcfg, dev)
+    frame0 = torch.full((), f0, dtype=torch.int32, device=dev)
+    # an int frame0 as extract passes it; a device one inside the graph
+    eager = lambda: trk.run_block(tcfg, state0, bx, va, fl, f0)
+    ms = graph_ms(lambda: trk.run_block(tcfg, state0, bx, va, fl, frame0))
+    return {"frames": len(bx), "tracks": tcfg.max_tracks,
+            "detections": bx.shape[1], "ms": ms,
+            "us_per_frame": ms * 1e3 / len(bx), "eager_ms": time_ms(eager),
+            "host_call_ms": host_call_ms(eager),
+            **tracker_bound(tcfg, bx, eager()[1], rate)}
+
+
+# the cases whose per-phase cycles the tracker phase prints
+CLOCK_CASES = ("main_path", "crossing", "crowd48_T64")
+
+
 def phase_tracker(dev, film, card, rate):
     """The tracker_scan kernel against run_block_plain on the card:
     integer emissions and state exact, boxes and the Kalman state within
-    BOX_ATOL, on phase 3's detections, the CPU tests' streams and the
-    crossing stream; the frames that took the JV solve (plain version's
-    count); device→host copies inside run_block (0); the kernel's and
-    the plain loop's ms per 128-frame block and the bound."""
+    BOX_ATOL, on phase 3's detections, the CPU tests' streams, the
+    crossing stream and the crowds; the frames that took the JV solve
+    (plain version's count); device→host copies inside run_block (0);
+    the measuring build's cycles per frame in each phase; the kernel's
+    and the plain loop's ms per 128-frame block, the wrapper's host ms
+    and the bound; the kernel's ms on crowd48 at T = 64."""
     cfg = ExtractConfig(face_threshold=0.9)
     rows, err, jv_total = {}, 0.0, 0
     with torch.inference_mode():
@@ -620,14 +726,23 @@ def phase_tracker(dev, film, card, rate):
             e = compare_scans(got, want, name)
             rows[name] = {"blocks": len(blocks), "jv_frames": jv,
                           "frames": sum(len(b[0]) for b in blocks),
+                          "tracks": tcfg.max_tracks,
+                          "detections": blocks[0][0].shape[1],
                           "emitted": sum(int(em.emit.sum())
                                          for _, em in got),
+                          "most_emitting": max(int(em.emit.sum(1).max())
+                                               for _, em in got),
                           "max_abs_err": e}
             err, jv_total = max(err, e), jv_total + jv
         if err > BOX_ATOL:
             raise AssertionError(f"tracker boxes / Kalman state {err}")
-        if rows["crossing"]["jv_frames"] == 0 or jv_total == 0:
+        if min(rows[k]["jv_frames"] for k in ("crossing", "crowd48_T40")) \
+                == 0:
             raise AssertionError(f"no frame took the JV solve: {rows}")
+        if rows["crowd48_T64"]["most_emitting"] <= 32:
+            raise AssertionError(f"crowd48 never filled 33 slots: {rows}")
+        by_name = {name: (tcfg, blocks) for name, tcfg, blocks in cases}
+        clocks = {k: tracker_clocks(*by_name[k], dev) for k in CLOCK_CASES}
         tcfg, (bx, va, fl, _) = cases[0][1], cases[0][2][0]
         state0 = init_tracker(tcfg, dev)
         kernel = lambda: trk.run_block(tcfg, state0, bx, va, fl, 0)
@@ -637,14 +752,17 @@ def phase_tracker(dev, film, card, rate):
         if copies:
             raise AssertionError(f"run_block copied {copies} times to the "
                                  f"host on the card")
+        main = tracker_timing(tcfg, cases[0][2][0], dev, rate)
+        crowd_cfg, crowd_blocks = by_name["crowd48_T64"]
         result = {
             "phase": "tracker", "card": card, "cases": rows,
             "max_abs_err": err, "jv_frames": jv_total,
             "d2h_copies_in_run_block": copies,
             "plain_d2h_copies": plain_copies,
-            "block_frames": len(bx), "ms": time_ms(kernel),
-            "plain_ms": wall_ms(plain),
-            **tracker_bound(tcfg, bx, kernel()[1], rate)}
+            "block_frames": len(bx), **main, "plain_ms": wall_ms(plain),
+            "crowd48_T64": tracker_timing(crowd_cfg, crowd_blocks[0], dev,
+                                          rate),
+            "clocks": clocks}
     emit(result)
     return result
 
@@ -1300,7 +1418,7 @@ def timed(fn):
     ms = wall_ms(fn)
     n_dev, dev_ms, prof_ms = device_profile(fn)
     return {"wall_ms": ms, "device_activities": n_dev, "device_ms": dev_ms,
-            "profiled_wall_ms": prof_ms, "busy_share": dev_ms / ms}
+            "profiled_wall_ms": prof_ms, "busy_share": busy(dev_ms, ms)}
 
 
 def phase_downstream_scale(dev, sizes=(1000, 2000), n_queries=40_000,
@@ -2090,7 +2208,11 @@ def main() -> int:
         "max_abs_err": tracker["max_abs_err"], "ms": tracker["ms"],
         "plain_ms": tracker["plain_ms"], "bound_ms": tracker["bound_ms"],
         "bound_by": tracker["bound_by"], "library_ms": None,
-        "shape": [tracker["block_frames"], 16, 4]})
+        "us_per_frame": tracker["us_per_frame"],
+        "eager_ms": tracker["eager_ms"],
+        "host_call_ms": tracker["host_call_ms"],
+        "crowd48_T64_ms": tracker["crowd48_T64"]["ms"],
+        "shape": [tracker["block_frames"], tracker["detections"], 4]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

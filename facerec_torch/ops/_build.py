@@ -6,6 +6,11 @@ go into ``facerec_torch/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of the source and the flags, so an edited kernel
 is rebuilt and a built one is reused.  A missing ``nvcc`` or a failed
 compile raises: there is no fallback to the plain versions.
+
+A variant builds one source a second time with its own defines under
+its own library name (``tracker_clocks``: ``tracker.cu`` with
+``-DFR_TRACKER_CLOCKS``, the measuring build); the main path loads the
+plain names only.
 """
 from __future__ import annotations
 
@@ -28,11 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # as its plain version's separate tensor operations do (no contraction
 # of a multiply and an add into one fma)
 EXTRA_FLAGS = {"tracker": ("-fmad=false",)}
+# library name -> (source name, its further flags)
+VARIANTS = {"tracker_clocks": ("tracker", ("-DFR_TRACKER_CLOCKS",))}
+
+
+def source(name: str) -> str:
+    """The ``csrc`` source that library ``name`` is built from."""
+    return os.path.join(CSRC_DIR, f"{VARIANTS.get(name, (name,))[0]}.cu")
 
 
 def flags(name: str) -> tuple:
-    """nvcc's flags for ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    """nvcc's flags for library ``name``."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return NVCC_FLAGS + EXTRA_FLAGS.get(src, ()) + extra
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -58,15 +71,15 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+    """Where library ``name`` lives."""
+    with open(source(name), "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
 def build(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    """Compile library ``name`` unless an up-to-date one exists;
     returns the library path.  ``verbose`` adds ``-Xptxas -v`` and
     prints the compiler's report (registers, shared memory, spills)."""
     out = library_path(name)
@@ -78,31 +91,34 @@ def build(name: str, verbose: bool = False) -> str:
     cmd = [find_nvcc(), *flags(name)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd += ["-o", tmp, source(name)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"({os.path.basename(source(name))}):\n"
+                           f"{proc.stderr}")
     if verbose:
-        print(proc.stderr, end="", flush=True)
+        print(f"[nvcc {name}]\n{proc.stderr}", end="", flush=True)
     os.replace(tmp, out)   # atomic: a concurrent build never sees half
     return out
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Build every ``csrc/*.cu`` at once, one ``nvcc`` per source, all
-    started together; returns {name: library path}."""
+    """Build every ``csrc/*.cu`` and every variant at once, one ``nvcc``
+    per library, all started together; returns {name: library path}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    names = sorted([f[:-3] for f in os.listdir(CSRC_DIR)
+                    if f.endswith(".cu")] + list(VARIANTS))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = {n: pool.submit(build, n, verbose) for n in names}
         return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``'s library, built first
-    if needed (once per process)."""
+    """The ctypes handle of library ``name``, built first if needed
+    (once per process)."""
     with _lock:
         lib: Optional[ctypes.CDLL] = _loaded.get(name)
         if lib is None:

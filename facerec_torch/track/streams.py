@@ -1,6 +1,6 @@
 """Detection streams that exercise the tracker: random drift with cuts,
-and crossing tracks with duplicated detections that send the
-association to the exact solver.
+crossing tracks with duplicated detections that send the association to
+the exact solver, and crowds that fill more than 32 track slots.
 
 :func:`simulate_stream` is the JAX package's test stream
 (``tests/test_tracker.py:simulate_stream``), copied so that the card's
@@ -82,6 +82,54 @@ def crossing_stream(rng: np.random.Generator, n_frames: int = 256,
         det_stream.append([np.clip(d, 0, [width, height, width, height])
                            for d in dets])
     return det_stream, flags
+
+
+def crowd_stream(rng: np.random.Generator, n_frames: int = 96,
+                 width: int = 768, height: int = 576, n_objects: int = 48,
+                 p_miss: float = 0.1, cuts: Sequence[int] = (48,)
+                 ) -> Tuple[List[List[np.ndarray]], np.ndarray]:
+    """A crowd: ``n_objects`` boxes from the first frame on, and a new
+    crowd after each cut, drifting with jitter and bouncing off the
+    frame's edges.  Each frame an object is missed with ``p_miss``, and
+    leaves with probability 0.01 while a new one enters in its place;
+    each frame's detections come in a random order."""
+    def enter():
+        s = rng.uniform(24, 64)
+        x, y = rng.uniform(0, width - s), rng.uniform(0, height - 1.3 * s)
+        return np.array([x, y, x + s, y + s * rng.uniform(1.0, 1.3),
+                         rng.uniform(-2, 2), rng.uniform(-2, 2)])
+
+    flags = np.zeros(n_frames, bool)
+    flags[list(cuts)] = True
+    objs, det_stream = [], []
+    for f in range(n_frames):
+        if f == 0 or flags[f]:
+            objs = [enter() for _ in range(n_objects)]
+        else:
+            objs = [enter() if rng.uniform() < 0.01 else o for o in objs]
+        dets = []
+        for o in objs:
+            o[:4] += np.array([o[4], o[5], o[4], o[5]])
+            if o[0] < 0 or o[2] > width:
+                o[4] = -o[4]
+            if o[1] < 0 or o[3] > height:
+                o[5] = -o[5]
+            if rng.uniform() >= p_miss:
+                dets.append(np.clip(o[:4] + rng.normal(0, 1.0, 4), 0,
+                                    [width, height, width, height]))
+        rng.shuffle(dets)
+        det_stream.append(dets)
+    return det_stream, flags
+
+
+# the crowd streams of the tracker's tests and chip_smoke.py, by name:
+# crowd_stream's keyword arguments
+CROWDS = {
+    "crowd48": dict(n_frames=96, width=768, height=576, n_objects=48,
+                    cuts=(48,)),
+    "crowd120": dict(n_frames=64, width=1920, height=1080, n_objects=120,
+                     cuts=()),
+}
 
 
 def stream_arrays(det_stream: Sequence[Sequence[np.ndarray]], d: int

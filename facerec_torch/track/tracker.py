@@ -7,8 +7,10 @@ frame's predict, the ``min_hits`` starting rule, ``max_age`` expiry and
 posterior-vs-prior history entries.
 
 :func:`run_block` scans a block of frames.  On a card it is one launch
-of the hand-written kernel ``tracker_scan`` (``csrc/tracker.cu``),
-which keeps the whole frame loop on the chip; on the CPU it is
+of the hand-written kernel ``tracker_scan`` (``csrc/tracker.cu``: one
+CTA of 8 threads a slot), which keeps the whole frame loop on the chip
+and takes 1..128 slots and detections (the JAX package sets no limit;
+the plain loop sets none either); on the CPU it is
 :func:`run_block_plain`, a Python loop of :func:`step` over the frames
 in place of ``lax.scan`` and the kernel's plain version (about a
 hundred small tensor operations per frame, and host reads that steer
@@ -18,7 +20,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, NamedTuple, Tuple, Union
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,14 +29,16 @@ import torch
 from facerec_torch.ops import _build, assignment, boxes, kalman
 
 _I32 = torch.int32
-# the kernel's capacity: a lane per track slot and per detection
-MAX_LANES = 32
+# the kernel's capacity in track slots and in detections per frame: 8
+# threads a slot, 1,024 at most in its one CTA
+MAX_SLOTS = 128
 
 # Launches of the tracker_scan kernel; chip_smoke.py zeroes it before
 # the main path and reads it after.
 launches: Dict[str, int] = {"tracker": 0}
 
 _lib = None
+_clock_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,55 +228,159 @@ def run_block_plain(cfg: TrackerConfig, state: TrackerState,
 
 
 def check_scan_shapes(cfg: TrackerConfig, det_boxes: torch.Tensor) -> None:
-    """The kernel's limits: T and D in 1..32 (a lane per slot and per
-    detection), (B, D, 4) boxes."""
+    """The kernel's limits: T and D in 1..MAX_SLOTS, (B, D, 4) boxes."""
     if det_boxes.dim() != 3 or det_boxes.shape[-1] != 4:
         raise ValueError(f"expected (B, D, 4) detections, got "
                          f"{tuple(det_boxes.shape)}")
     t, d = cfg.max_tracks, det_boxes.shape[1]
-    if not (1 <= t <= MAX_LANES and 1 <= d <= MAX_LANES):
+    if not (1 <= t <= MAX_SLOTS and 1 <= d <= MAX_SLOTS):
         raise ValueError(
-            f"tracker_scan takes 1..{MAX_LANES} track slots and "
+            f"tracker_scan takes 1..{MAX_SLOTS} track slots and "
             f"detections per frame, got T={t}, D={d}")
+
+
+_IN_PTRS = ("det_boxes", "det_valid", "scene", "frame0", "x", "p", "active",
+            "uid", "first_frame", "hist_len", "tsu", "hits", "initial_hits",
+            "next_uid")
+_OUT_PTRS = ("x_out", "p_out", "active_out", "uid_out", "first_frame_out",
+             "hist_len_out", "tsu_out", "hits_out", "initial_hits_out",
+             "next_uid_out", "e_box", "e_emit", "e_detected", "e_uid",
+             "e_first_frame", "e_det_slot", "e_overflow")
+_STATE_I32 = ("uid", "first_frame", "hist_len", "tsu", "hits",
+              "initial_hits")
 
 
 class _ScanArgs(ctypes.Structure):
     """``ScanArgs`` of ``csrc/tracker.cu``, field for field."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "det_boxes", "det_valid", "scene", "frame0", "x", "p", "active",
-        "uid", "first_frame", "hist_len", "tsu", "hits", "initial_hits",
-        "next_uid", "x_out", "p_out", "active_out", "uid_out",
-        "first_frame_out", "hist_len_out", "tsu_out", "hits_out",
-        "initial_hits_out", "next_uid_out", "e_box", "e_emit",
-        "e_detected", "e_uid", "e_first_frame", "e_det_slot",
-        "e_overflow")]
-        + [(n, ctypes.c_int) for n in (
-            "frames", "tracks", "dets", "max_age", "min_hits")]
-        + [("iou_threshold", ctypes.c_float),
-           ("q", ctypes.c_float * 8), ("p0", ctypes.c_float * 8),
-           ("r", ctypes.c_float * 4)])
+    _fields_ = ([(n, ctypes.c_void_p) for n in _IN_PTRS + _OUT_PTRS]
+                + [(n, ctypes.c_int) for n in (
+                    "frames", "tracks", "dets", "max_age", "min_hits")]
+                + [("iou_threshold", ctypes.c_float),
+                   ("q", ctypes.c_float * 8), ("p0", ctypes.c_float * 8),
+                   ("r", ctypes.c_float * 4)])
 
 
-def _kernel():
-    global _lib
+def _kernel(clocks: bool = False):
+    """The ctypes entry point of the kernel, or of its measuring build."""
+    global _lib, _clock_lib
+    if clocks:
+        if _clock_lib is None:
+            lib = _build.load("tracker_clocks")
+            fn = lib.fr_tracker_scan_clocks
+            fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_void_p,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _clock_lib = lib
+        return _clock_lib.fr_tracker_scan_clocks
     if _lib is None:
         lib = _build.load("tracker")
         lib.fr_tracker_scan.argtypes = [ctypes.POINTER(_ScanArgs),
                                         ctypes.c_void_p]
         lib.fr_tracker_scan.restype = ctypes.c_int
         _lib = lib
-    return _lib
+    return _lib.fr_tracker_scan
 
 
-def _arg(t: torch.Tensor, dtype: torch.dtype, shape, dev, what: str
-         ) -> torch.Tensor:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or t.device != dev:
+@functools.lru_cache(maxsize=64)
+def _const_args(cfg: TrackerConfig) -> _ScanArgs:
+    """The launch arguments that depend on the config alone (pointers and
+    the frame and detection counts are filled in per call)."""
+    return _ScanArgs(
+        tracks=cfg.max_tracks, max_age=cfg.max_age, min_hits=cfg.min_hits,
+        iou_threshold=cfg.iou_threshold,
+        q=(ctypes.c_float * 8)(*np.diag(kalman.Q_NP)),
+        p0=(ctypes.c_float * 8)(*np.diag(kalman.P0_NP)),
+        r=(ctypes.c_float * 4)(*np.diag(kalman.R_NP)))
+
+
+@functools.lru_cache(maxsize=64)
+def _out_layout(b: int, t: int, d: int):
+    """Where :func:`output_views` cuts its views: the float32 and int32
+    buffers' lengths, then (shape, strides, offset in elements) of each
+    float32 view, each int32 view and each flag (bytes after the int32s,
+    offsets in bytes)."""
+    def cut(specs, at=0):
+        out = []
+        for shape in specs:
+            strides = tuple(int(np.prod(shape[k + 1:]))
+                            for k in range(len(shape)))
+            out.append((shape, strides, at))
+            at += int(np.prod(shape))
+        return out, at
+    f32, n_f32 = cut([(t, 8), (t, 8, 8), (b, t, 4)])
+    i32, n_i32 = cut([(t,)] * 6 + [(), (b, t), (b, t), (b, d), (b,)])
+    flags, end = cut([(t,), (b, t), (b, t)], 4 * n_i32)
+    return n_f32, -(-end // 4), f32, i32, flags
+
+
+def output_views(b: int, t: int, d: int, device: torch.device
+                 ) -> Tuple[TrackerState, TrackEmit]:
+    """The kernel's outputs, the new state and the emissions, as
+    contiguous views of one float32 and one int32 buffer (the flags as
+    bool views of the int32 buffer's tail): two allocations a block in
+    place of seventeen.  No two views overlap."""
+    n_f32, n_i32, f32_at, i32_at, flag_at = _out_layout(b, t, d)
+    f32 = torch.empty(n_f32, dtype=torch.float32, device=device)
+    i32 = torch.empty(n_i32, dtype=_I32, device=device)
+    flags = i32.view(torch.uint8).view(torch.bool)
+    x, p, box = (f32.as_strided(*v) for v in f32_at)
+    ints = [i32.as_strided(*v) for v in i32_at]
+    active, emit, detected = (flags.as_strided(*v) for v in flag_at)
+    return (TrackerState(kalman.KalmanState(x, p), active, *ints[:7]),
+            TrackEmit(box, emit, detected, *ints[7:]))
+
+
+def _arg(x: torch.Tensor, dtype: torch.dtype, shape: tuple, dev,
+         what: str) -> int:
+    """The address of ``x`` (made contiguous) after checking it."""
+    if x.dtype != dtype or x.shape != shape or x.device != dev:
         raise ValueError(f"tracker_scan: {what} must be {dtype} "
-                         f"{tuple(shape)} on {dev}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-    return t.contiguous()
+                         f"{tuple(shape)} on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    return x.contiguous().data_ptr()
+
+
+def _launch(cfg: TrackerConfig, state: TrackerState, det_boxes: torch.Tensor,
+            det_valid: torch.Tensor, scene_changes: torch.Tensor,
+            frame0: Union[int, torch.Tensor],
+            clocks: Optional[torch.Tensor] = None
+            ) -> Tuple[TrackerState, TrackEmit]:
+    check_scan_shapes(cfg, det_boxes)
+    dev = det_boxes.device
+    if dev.type != "cuda":
+        raise ValueError(f"tracker_scan takes CUDA tensors, got {dev}")
+    b, d, _ = det_boxes.shape
+    t = cfg.max_tracks
+    f32, u8 = torch.float32, torch.bool     # the kernel reads bools as u8
+    with torch.cuda.device(dev):
+        if not isinstance(frame0, torch.Tensor):
+            frame0 = torch.full((), int(frame0), dtype=_I32, device=dev)
+        ptrs = [_arg(det_boxes, f32, (b, d, 4), dev, "det_boxes"),
+                _arg(det_valid, u8, (b, d), dev, "det_valid"),
+                _arg(scene_changes, u8, (b,), dev, "scene_changes"),
+                _arg(frame0, _I32, (), dev, "frame0"),
+                _arg(state.kf.x, f32, (t, 8), dev, "kf.x"),
+                _arg(state.kf.p, f32, (t, 8, 8), dev, "kf.p"),
+                _arg(state.active, u8, (t,), dev, "active")]
+        ptrs += [_arg(getattr(state, n), _I32, (t,), dev, n)
+                 for n in _STATE_I32]
+        ptrs.append(_arg(state.next_uid, _I32, (), dev, "next_uid"))
+        new, emit = output_views(b, t, d, dev)
+        ptrs += [x.data_ptr() for x in (*new.kf, *new[1:], *emit)]
+        args = _ScanArgs.from_buffer_copy(_const_args(cfg))
+        for n, ptr in zip(_IN_PTRS + _OUT_PTRS, ptrs):
+            setattr(args, n, ptr)
+        args.frames, args.dets = b, d
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if clocks is None:
+            err = _kernel()(ctypes.byref(args), stream)
+        else:
+            err = _kernel(clocks=True)(ctypes.byref(args),
+                                       clocks.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"tracker_scan launch failed: cudaError {err}")
+    return new, emit
 
 
 def run_block_cuda(cfg: TrackerConfig, state: TrackerState,
@@ -283,57 +392,26 @@ def run_block_cuda(cfg: TrackerConfig, state: TrackerState,
     launch on the current stream.  No host read and no host→device copy
     (an int ``frame0`` is filled in on the card), so a CUDA graph can
     capture it."""
-    check_scan_shapes(cfg, det_boxes)
-    dev = det_boxes.device
-    if dev.type != "cuda":
-        raise ValueError(f"tracker_scan takes CUDA tensors, got {dev}")
-    b, d, _ = det_boxes.shape
-    t = cfg.max_tracks
-    f32, u8 = torch.float32, torch.uint8
-    as_u8 = lambda x, shape, what: _arg(x, torch.bool, shape, dev,
-                                        what).view(u8)
-    with torch.cuda.device(dev):
-        if not isinstance(frame0, torch.Tensor):
-            frame0 = torch.full((), int(frame0), dtype=_I32, device=dev)
-        ins = [_arg(det_boxes, f32, (b, d, 4), dev, "det_boxes"),
-               as_u8(det_valid, (b, d), "det_valid"),
-               as_u8(scene_changes, (b,), "scene_changes"),
-               _arg(frame0, _I32, (), dev, "frame0"),
-               _arg(state.kf.x, f32, (t, 8), dev, "kf.x"),
-               _arg(state.kf.p, f32, (t, 8, 8), dev, "kf.p"),
-               as_u8(state.active, (t,), "active")]
-        ins += [_arg(getattr(state, n), _I32, (t,), dev, n) for n in (
-            "uid", "first_frame", "hist_len", "tsu", "hits", "initial_hits")]
-        ins.append(_arg(state.next_uid, _I32, (), dev, "next_uid"))
-        new = TrackerState(
-            kf=kalman.KalmanState(torch.empty((t, 8), dtype=f32, device=dev),
-                                  torch.empty((t, 8, 8), dtype=f32,
-                                              device=dev)),
-            active=torch.empty((t,), dtype=torch.bool, device=dev),
-            **{n: torch.empty((t,), dtype=_I32, device=dev) for n in (
-                "uid", "first_frame", "hist_len", "tsu", "hits",
-                "initial_hits")},
-            next_uid=torch.empty((), dtype=_I32, device=dev))
-        emit = TrackEmit(
-            box=torch.empty((b, t, 4), dtype=f32, device=dev),
-            emit=torch.empty((b, t), dtype=torch.bool, device=dev),
-            detected=torch.empty((b, t), dtype=torch.bool, device=dev),
-            uid=torch.empty((b, t), dtype=_I32, device=dev),
-            first_frame=torch.empty((b, t), dtype=_I32, device=dev),
-            det_slot=torch.empty((b, d), dtype=_I32, device=dev),
-            overflow=torch.empty((b,), dtype=_I32, device=dev))
-        outs = [new.kf.x, new.kf.p, new.active, new.uid, new.first_frame,
-                new.hist_len, new.tsu, new.hits, new.initial_hits,
-                new.next_uid, *emit]
-        args = _ScanArgs(
-            *(x.data_ptr() for x in ins + outs), b, t, d, cfg.max_age,
-            cfg.min_hits, cfg.iou_threshold,
-            (ctypes.c_float * 8)(*np.diag(kalman.Q_NP)),
-            (ctypes.c_float * 8)(*np.diag(kalman.P0_NP)),
-            (ctypes.c_float * 4)(*np.diag(kalman.R_NP)))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel().fr_tracker_scan(ctypes.byref(args), stream)
-    if err:
-        raise RuntimeError(f"tracker_scan launch failed: cudaError {err}")
+    out = _launch(cfg, state, det_boxes, det_valid, scene_changes, frame0)
     launches["tracker"] += 1
-    return new, emit
+    return out
+
+
+CLOCK_PHASES = ("load", "predict", "utilities", "collisions", "jv",
+                "update", "spawn", "emissions")
+
+
+def run_block_clocks(cfg: TrackerConfig, state: TrackerState,
+                     det_boxes: torch.Tensor, det_valid: torch.Tensor,
+                     scene_changes: torch.Tensor,
+                     frame0: Union[int, torch.Tensor]
+                     ) -> Tuple[TrackerState, TrackEmit, torch.Tensor]:
+    """:func:`run_block_cuda` through the measuring build of the kernel
+    (library ``tracker_clocks``): also the (B, len(CLOCK_PHASES)) int64
+    SM cycles that each frame spent in each phase.  For measurement
+    only; it counts no launch."""
+    clocks = torch.zeros((det_boxes.shape[0], len(CLOCK_PHASES)),
+                         dtype=torch.int64, device=det_boxes.device)
+    new, emit = _launch(cfg, state, det_boxes, det_valid, scene_changes,
+                        frame0, clocks)
+    return new, emit, clocks

@@ -116,18 +116,95 @@ def test_cpu_tensors_take_the_plain_loop_and_load_no_kernel():
 
 
 @pytest.mark.parametrize("t_slots,d,ok", [
-    (32, 16, True), (32, 32, True), (1, 1, True),
-    (33, 16, False), (32, 33, False), (0, 8, False)])
+    (32, 16, True), (33, 16, True), (64, 48, True), (128, 128, True),
+    (1, 1, True), (129, 16, False), (32, 129, False), (0, 8, False)])
 def test_kernel_shape_limits(t_slots, d, ok):
-    """tracker_scan takes 1..32 slots and detections (a lane each);
-    the wrapper refuses the rest before any launch."""
+    """tracker_scan takes 1..128 slots and detections (8 threads a slot,
+    1,024 at most); the wrapper refuses the rest before any launch."""
     cfg = TrackerConfig(max_tracks=t_slots, max_detections=d)
     boxes = torch.zeros((4, d, 4))
     if ok:
         trk.check_scan_shapes(cfg, boxes)
     else:
-        with pytest.raises(ValueError, match="1..32"):
+        with pytest.raises(ValueError, match="1..128"):
             trk.check_scan_shapes(cfg, boxes)
+
+
+@pytest.mark.parametrize("b,t_slots,d", [(128, 32, 16), (7, 3, 8),
+                                         (64, 128, 128)])
+def test_output_views_are_disjoint_contiguous_views(b, t_slots, d):
+    """The kernel's outputs are views of one float32 and one int32
+    buffer (what the card path allocates, built here on CPU tensors):
+    each of the right shape and dtype, contiguous, and no two views
+    overlapping each other or the inputs."""
+    cfg = TrackerConfig(max_tracks=t_slots, max_detections=d)
+    state_in = init_tracker(cfg)
+    ins = [torch.zeros((b, d, 4)), torch.zeros((b, d), dtype=torch.bool),
+           torch.zeros((b,), dtype=torch.bool), *state_in.kf,
+           *state_in[1:]]
+    new, emit = trk.output_views(b, t_slots, d, torch.device("cpu"))
+    want = {"x": ((t_slots, 8), torch.float32),
+            "p": ((t_slots, 8, 8), torch.float32),
+            "active": ((t_slots,), torch.bool),
+            **{n: ((t_slots,), torch.int32) for n in trk._STATE_I32},
+            "next_uid": ((), torch.int32),
+            "box": ((b, t_slots, 4), torch.float32),
+            "emit": ((b, t_slots), torch.bool),
+            "detected": ((b, t_slots), torch.bool),
+            "uid_e": ((b, t_slots), torch.int32),
+            "first_frame_e": ((b, t_slots), torch.int32),
+            "det_slot": ((b, d), torch.int32),
+            "overflow": ((b,), torch.int32)}
+    outs = [*new.kf, *new[1:], *emit]
+    assert len(outs) == len(want)
+    for x, (name, (shape, dtype)) in zip(outs, want.items()):
+        assert tuple(x.shape) == shape and x.dtype == dtype, name
+        assert x.is_contiguous(), name
+    assert len({x.untyped_storage().data_ptr() for x in outs}) == 2
+    spans = sorted((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size())
+                   for x in outs + ins)
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start
+    # the kernel stores the box emissions as 16-byte groups
+    assert emit.box.data_ptr() % 16 == 0 and new.kf.p.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("max_tracks", [64, 40])
+def test_crowd_matches_jax(max_tracks):
+    """crowd48 (48 objects at 768x576, a cut at frame 48) at D = 48: at
+    T = 64 more than 32 slots follow a track at once; at T = 40, D > T
+    sends every frame to the JV solve on K = 48 > 32, and detections
+    overflow.  Integers exact, boxes within BOX_ATOL of the JAX
+    package's run_block on the same numpy stream."""
+    d, block = 48, 48
+    det_stream, cuts = streams.crowd_stream(np.random.default_rng(0),
+                                            **streams.CROWDS["crowd48"])
+    bx, valid = streams.stream_arrays(det_stream, d)
+    jcfg = JaxTrackerConfig(max_tracks=max_tracks, max_detections=d)
+    cfg = TrackerConfig(max_tracks=max_tracks, max_detections=d)
+    jstate, state = jax_init_tracker(jcfg), init_tracker(cfg)
+    assignment.solves["jv"] = 0
+    most, overflow = 0, 0
+    for f0 in range(0, len(det_stream), block):
+        sl = slice(f0, f0 + block)
+        jstate, jemit = jax_run_block(
+            jcfg, jstate, jnp.asarray(bx[sl]), jnp.asarray(valid[sl]),
+            jnp.asarray(cuts[sl]), jnp.int32(f0))
+        state, emit = run_block(cfg, state, t(bx[sl]), t(valid[sl]),
+                                t(cuts[sl]), f0)
+        for name in ("det_slot", "uid", "emit", "detected",
+                     "first_frame", "overflow"):
+            np.testing.assert_array_equal(
+                getattr(emit, name).numpy(),
+                np.asarray(getattr(jemit, name)), err_msg=name)
+        np.testing.assert_allclose(emit.box.numpy(), np.asarray(jemit.box),
+                                   rtol=0, atol=BOX_ATOL)
+        most = max(most, int(emit.emit.sum(dim=1).max()))
+        overflow += int(emit.overflow.sum())
+    if max_tracks == 64:
+        assert most > 32 and overflow == 0
+    else:
+        assert assignment.solves["jv"] == len(det_stream) and overflow > 0
 
 
 def test_port_stream_is_the_jax_tests_stream():
