@@ -45,7 +45,7 @@ from facerec_torch.models.detector import DetectorHarness, fit_input_size
 from facerec_torch.ops import _build, assignment
 from facerec_torch.ops import equalize as eqm
 from facerec_torch.ops import scene as scene_ops
-from facerec_torch.pipeline.extract import EmbedderBank, run_extract
+from facerec_torch.pipeline.extract import PHASES, EmbedderBank, run_extract
 from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.runtime.device import resolve_device
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
@@ -1833,9 +1833,8 @@ def phase_multi_device(dev, out_root, film, main_root, main_path, card,
     torch.cuda.empty_cache()
     with open(os.path.join(serial, "777-data", "run_report.json")) as f:
         rep = json.load(f)
-    serial_loop = sum(v for r in rep.values()
-                      for k, v in r["counters"].items()
-                      if k.endswith("_seconds"))
+    serial_loop = sum(r["counters"][f"{p}_seconds"] for r in rep.values()
+                      for p in PHASES)
 
     mesh = os.path.join(out_root, "mesh")
     reset_launches()

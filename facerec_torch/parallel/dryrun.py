@@ -35,6 +35,7 @@ def _rank(rank: int, device: torch.device, n: int) -> dict:
                                                         sharded_extract_step)
     from facerec_torch.parallel.mesh import gather_rows
     from facerec_torch.pipeline.extract import EmbedderBank, block_step
+    from facerec_torch.runtime.metrics import Spans
     from facerec_torch.track import TrackerConfig, init_tracker
     from facerec_torch.train import DetectorTrainer
     from facerec_torch.train.facenet_train import FaceNetTrainer
@@ -66,7 +67,8 @@ def _rank(rank: int, device: torch.device, n: int) -> dict:
     with torch.inference_mode():
         for frame0 in (100 * rank, 100 * rank + 4):
             (flags, _, _, _), scene_state, tracker_state = block_step(
-                det, tcfg, block, scene_state, tracker_state, frame0)
+                det, tcfg, block, scene_state, tracker_state, frame0,
+                Spans("extract"))
             if flags.shape != (4,):
                 raise AssertionError(f"span step flags {flags.shape}")
         bank = EmbedderBank.create_default(device)

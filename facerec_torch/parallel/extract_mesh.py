@@ -34,8 +34,9 @@ from facerec_torch.contract import MovieDirs
 from facerec_torch.contract.naming import movie_id_from_filename
 from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.parallel.mesh import mesh_devices, run_ranks
-from facerec_torch.pipeline.extract import (EmbedderBank, ExtractCounters,
-                                            build_detector, build_embedders,
+from facerec_torch.pipeline.extract import (PHASES, EmbedderBank,
+                                            ExtractCounters, build_detector,
+                                            build_embedders,
                                             check_wire_format, film_info,
                                             run_span)
 from facerec_torch.runtime import checkpoint as ckpt
@@ -84,7 +85,7 @@ def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
                  facenet_weights):
     """Span ``spans[rank]`` on ``device``: build (or load) the detector
     and bank there, run the serial loop; returns (counters, blocks,
-    phase seconds, the kernels' launches)."""
+    its spans' totals, the kernels' launches)."""
     beg, end, stop = spans[rank]
     load = lambda b: torch.load(io.BytesIO(b), map_location=device,
                                 weights_only=False)
@@ -95,7 +96,7 @@ def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
                  else build_embedders(facenet_weights, device))
     run = run_span(film, info, cfg, dirs, movie_id, beg, end, stop, detector,
                    embedders, device, spans=n)
-    return (run.counters, run.blocks, run.phase,
+    return (run.counters, run.blocks, run.spans.totals(),
             kernel_launches.snapshot())
 
 
@@ -176,11 +177,13 @@ def run_extract_mesh(
     report.set("steps", sum(r[1] for r in results))
     # each span's loop wall time: the spans run at once, so the slowest
     # bounds the run
-    report.set("span_loop_seconds",
-               [round(sum(r[2].values()), 3) for r in results])
-    for key in results[0][2]:
-        report.set(f"{key}_seconds",
-                   round(sum(r[2][key] for r in results), 3))
+    report.set("span_loop_seconds", [
+        round(sum(r[2][f"{p}_seconds"] for p in PHASES), 3)
+        for r in results])
+    # every span's seconds and every counter, summed over the spans
+    keys = dict.fromkeys(k for r in results for k in r[2])
+    report.set_totals({k: sum(r[2].get(k, 0) for r in results)
+                       for k in keys})
     report.write(dirs.root)
     print(f"Saved {total.saved_boxes} boxes from "
           f"{total.saved_frames} different frames")

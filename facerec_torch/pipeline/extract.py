@@ -49,7 +49,7 @@ from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline import faces as faces_mod
 from facerec_torch.runtime import checkpoint as ckpt
 from facerec_torch.runtime.device import resolve_device, use_full_float32
-from facerec_torch.runtime.metrics import StageReport
+from facerec_torch.runtime.metrics import Spans, StageReport
 from facerec_torch.runtime.transfer import pack_tree, tree_spec, unpack_tree
 from facerec_torch.track import (TrackEmit, TrackerConfig,
                                  TrajectoryAssembler, init_tracker,
@@ -64,6 +64,16 @@ WIRE_FORMATS = ("rgb", "rgb-delta", "yuv420-delta")
 # whatever the fetch grouping (cuDNN and cuBLAS pick kernels by shape,
 # and with them the rounding)
 EMBED_BATCH = 64
+# the extract loop's seven disjoint phases, run_report.json's
+# <phase>_seconds; the other spans nest inside them
+# (facerec_torch/runtime/metrics.py)
+PHASES = ("decode", "encode", "upload", "dispatch", "fetch", "consume",
+          "flush_dispatch")
+SPANS = PHASES + ("dispatch_scene", "dispatch_detector", "dispatch_tracker",
+                  "dispatch_pack", "consume_unpack", "consume_assemble",
+                  "consume_plan", "consume_write", "flush_embed")
+COUNTERS = ("embed_crops", "embed_slots", "embed_dispatches", "detections",
+            "fetch_bytes", "fetch_groups", "upload_bytes")
 
 
 @dataclasses.dataclass
@@ -101,18 +111,21 @@ class ExtractCounters:
 
 
 def block_step(detector, tracker_cfg: TrackerConfig, frames: torch.Tensor,
-               scene_state, tracker_state, frame0: int):
+               scene_state, tracker_state, frame0: int, spans: Spans):
     """Scene statistics → detector → tracker over one block of frames,
-    every tensor on the frames' device.
+    every tensor on the frames' device, each stage a span of ``spans``.
 
     Returns ((flags, emit, det_valid, landmarks), scene_state,
     tracker_state)."""
-    flags, scene_state = scene_ops.detect_block(frames, scene_state)
-    if hasattr(detector, "set_block_start"):
-        detector.set_block_start(frame0)
-    det = detector(frames)
-    tracker_state, emit = run_block(tracker_cfg, tracker_state, det.boxes,
-                                    det.valid, flags, frame0)
+    with spans.span("dispatch_scene"):
+        flags, scene_state = scene_ops.detect_block(frames, scene_state)
+    with spans.span("dispatch_detector"):
+        if hasattr(detector, "set_block_start"):
+            detector.set_block_start(frame0)
+        det = detector(frames)
+    with spans.span("dispatch_tracker"):
+        tracker_state, emit = run_block(tracker_cfg, tracker_state,
+                                        det.boxes, det.valid, flags, frame0)
     return (flags, emit, det.valid, det.landmarks), scene_state, \
         tracker_state
 
@@ -202,13 +215,15 @@ class ShardConsumer:
     pixel window for crops, batched crop+embed, and the
     feature/image/scene-change writers.  On the yuv420-delta wire the
     host window holds absolute I420 planes and the device window the
-    reconstructed RGB."""
+    reconstructed RGB.  Its work is timed and counted in ``spans``."""
 
     def __init__(self, dirs: MovieDirs, movie_id: int, cfg: ExtractConfig,
                  beg: int, end: int, d_w: int, d_h: int,
                  embedders: EmbedderBank, device: torch.device,
-                 jpeg_writer=None, resume_state: Optional[dict] = None):
+                 spans: Spans, jpeg_writer=None,
+                 resume_state: Optional[dict] = None):
         self.dirs = dirs
+        self.spans = spans
         self.movie_id = movie_id
         self.cfg = cfg
         self.beg, self.end = beg, end
@@ -259,89 +274,85 @@ class ShardConsumer:
                    det_valid: np.ndarray, landmarks: np.ndarray,
                    dev_frames: Optional[torch.Tensor] = None) -> None:
         """Consume one block's pulled results."""
-        det_slot, slot_uid, slot_box = (emit_host.det_slot, emit_host.uid,
-                                        emit_host.box)
-        self.scene_changes.extend((frame0 + np.nonzero(flags)[0]).tolist())
+        with self.spans.span("consume_assemble", frame0=frame0):
+            det_slot, slot_uid, slot_box = (emit_host.det_slot, emit_host.uid,
+                                            emit_host.box)
+            self.scene_changes.extend((frame0 + np.nonzero(flags)[0]).tolist())
 
-        for rec in self.assembler.feed(emit_host, frame0):
-            records.write_trajectory(self.traj_file, rec)
-            self.counters.saved_trajectories += 1
-        # (frame, detection) pairs that joined a track, in frame then
-        # detection order
-        rows, dets = np.nonzero(det_valid[:len(frames)] & (det_slot >= 0))
-        slots = det_slot[rows, dets]
-        for i, d, s in zip(rows.tolist(), dets.tolist(), slots.tolist()):
-            self.pending.append(faces_mod.PendingFace(
-                frame=frame0 + i, uid=int(slot_uid[i, s]),
-                posterior_box=slot_box[i, s].copy(),
-                landmarks=landmarks[i, d]))
+            for rec in self.assembler.feed(emit_host, frame0):
+                records.write_trajectory(self.traj_file, rec)
+                self.counters.saved_trajectories += 1
+            valid = det_valid[:len(frames)]
+            self.spans.count("detections", np.count_nonzero(valid))
+            # (frame, detection) pairs that joined a track, in frame then
+            # detection order
+            rows, dets = np.nonzero(valid & (det_slot >= 0))
+            slots = det_slot[rows, dets]
+            for i, d, s in zip(rows.tolist(), dets.tolist(), slots.tolist()):
+                self.pending.append(faces_mod.PendingFace(
+                    frame=frame0 + i, uid=int(slot_uid[i, s]),
+                    posterior_box=slot_box[i, s].copy(),
+                    landmarks=landmarks[i, d]))
 
-        self.pixel_window[frame0] = frames
-        if dev_frames is not None:
-            self.dev_window[frame0] = dev_frames
-        self.counters.frames_processed += len(frames)
+            self.pixel_window[frame0] = frames
+            if dev_frames is not None:
+                self.dev_window[frame0] = dev_frames
+            self.counters.frames_processed += len(frames)
 
     def block_watermark(self, frame0: int, n_frames: int) -> int:
         """Faces at frames ≤ this are flushed after the block — the
         deferred-validity horizon (min_trajectory - 1 frames)."""
         return frame0 + n_frames - 1 - (self.cfg.min_trajectory - 1)
 
-    def flush_faces(self, watermark: Optional[int]) -> None:
-        """Emit features/images for pending faces with frame ≤
-        watermark (None = all), in frame order."""
-        self.plan_flush(watermark)
-        pe = self.dispatch_flush_plans()
-        if pe is not None:
-            self.complete_flush(pe)
-
     def plan_flush(self, watermark: Optional[int]) -> Optional[FlushPlan]:
-        """Select the faces ready at ``watermark`` and write their JPEG
-        images — no device work; the plan queues until
-        :meth:`dispatch_flush_plans`."""
-        cfg = self.cfg
-        due = [p for p in self.pending
-               if watermark is None or p.frame <= watermark]
-        later = [p for p in self.pending
-                 if not (watermark is None or p.frame <= watermark)]
-        # undecided tracks stay pending, ahead of later blocks' faces,
-        # so features.jsonl stays in frame order
-        undecided = [p for p in due
-                     if self.assembler.track_valid(p.uid) is None]
-        self.pending = (undecided if watermark is not None else []) + later
-        ready = [p for p in due
-                 if p.frame % cfg.save_every == 0
-                 and self.assembler.track_valid(p.uid)]
-        if not ready:
+        """Select the faces ready at ``watermark`` (None = all pending)
+        and write their JPEG images — no device work; the plan queues
+        until :meth:`dispatch_flush_plans`."""
+        with self.spans.span("consume_plan"):
+            cfg = self.cfg
+            due = [p for p in self.pending
+                   if watermark is None or p.frame <= watermark]
+            later = [p for p in self.pending
+                     if not (watermark is None or p.frame <= watermark)]
+            # undecided tracks stay pending, ahead of later blocks' faces,
+            # so features.jsonl stays in frame order
+            undecided = [p for p in due
+                         if self.assembler.track_valid(p.uid) is None]
+            self.pending = (undecided if watermark is not None else []) + later
+            ready = [p for p in due
+                     if p.frame % cfg.save_every == 0
+                     and self.assembler.track_valid(p.uid)]
+            if not ready:
+                self._trim_window()
+                return None
+
+            d_w, d_h = self.d_w, self.d_h
+            tight_boxes = [round_clip_box(p.posterior_box, d_w, d_h)
+                           for p in ready]
+            crop_boxes = np.stack([
+                faces_mod.embed_crop_box(tb, d_w, d_h) for tb in tight_boxes])
+
+            if cfg.save_images:
+                rgb_memo: Dict[int, np.ndarray] = {}
+                for i, p in enumerate(ready):
+                    b = self._block_of(p.frame)
+                    frame_px = self.pixel_window[b][p.frame - b]
+                    if frame_px.ndim == 2:
+                        # yuv420-delta: convert only the frames that save a
+                        # face, with OpenCV's integer conversion
+                        if p.frame not in rgb_memo:
+                            rgb_memo[p.frame] = yuv_ops.i420_frame_to_rgb(
+                                frame_px)
+                        frame_px = rgb_memo[p.frame]
+                    faces_mod.save_face_image(
+                        frame_px, p.posterior_box, d_w, d_h, self.dirs.images,
+                        box_tag(self.movie_id, p.frame, tight_boxes[i]),
+                        jpeg_writer=self.jpeg_writer)
+
+            plan = FlushPlan(ready, tight_boxes, crop_boxes)
+            self._plans.append(plan)
             self._trim_window()
-            return None
-
-        d_w, d_h = self.d_w, self.d_h
-        tight_boxes = [round_clip_box(p.posterior_box, d_w, d_h)
-                       for p in ready]
-        crop_boxes = np.stack([
-            faces_mod.embed_crop_box(tb, d_w, d_h) for tb in tight_boxes])
-
-        if cfg.save_images:
-            rgb_memo: Dict[int, np.ndarray] = {}
-            for i, p in enumerate(ready):
-                b = self._block_of(p.frame)
-                frame_px = self.pixel_window[b][p.frame - b]
-                if frame_px.ndim == 2:
-                    # yuv420-delta: convert only the frames that save a
-                    # face, with OpenCV's integer conversion
-                    if p.frame not in rgb_memo:
-                        rgb_memo[p.frame] = yuv_ops.i420_frame_to_rgb(
-                            frame_px)
-                    frame_px = rgb_memo[p.frame]
-                faces_mod.save_face_image(
-                    frame_px, p.posterior_box, d_w, d_h, self.dirs.images,
-                    box_tag(self.movie_id, p.frame, tight_boxes[i]),
-                    jpeg_writer=self.jpeg_writer)
-
-        plan = FlushPlan(ready, tight_boxes, crop_boxes)
-        self._plans.append(plan)
-        self._trim_window()
-        return plan
+            return plan
 
     def dispatch_flush_plans(self) -> Optional[PendingEmbed]:
         """One batched crop+embed over every queued plan, in selection
@@ -379,16 +390,21 @@ class ShardConsumer:
                 [crop_boxes, np.tile(crop_boxes[-1:], (bucket - n_real, 1))])
             frame_idx = np.concatenate(
                 [frame_idx, np.full(bucket - n_real, frame_idx[-1])])
+        self.spans.count("embed_crops", n_real)
+        self.spans.count("embed_slots", bucket)
+        self.spans.count("embed_dispatches", 1)
 
-        if getattr(self.embedders, "supports_deferred", False):
-            buf = self.embedders.dispatch_crop_embed(dev_stack, frame_idx,
-                                                     crop_boxes)
-            pe = PendingEmbed(ready, tight_boxes, dev_packed=buf,
-                              nbytes=int(buf.shape[0]))
-        else:
-            emb = self.embedders(crops_of(dev_stack, frame_idx, crop_boxes))
-            pe = PendingEmbed(ready, tight_boxes, host_embeddings={
-                name: v[:n_real] for name, v in emb.items()})
+        with self.spans.span("flush_embed"):
+            if getattr(self.embedders, "supports_deferred", False):
+                buf = self.embedders.dispatch_crop_embed(
+                    dev_stack, frame_idx, crop_boxes)
+                pe = PendingEmbed(ready, tight_boxes, dev_packed=buf,
+                                  nbytes=int(buf.shape[0]))
+            else:
+                emb = self.embedders(crops_of(dev_stack, frame_idx,
+                                              crop_boxes))
+                pe = PendingEmbed(ready, tight_boxes, host_embeddings={
+                    name: v[:n_real] for name, v in emb.items()})
         self._trim_window()
         return pe
 
@@ -404,23 +420,25 @@ class ShardConsumer:
         """Write the feature records of a dispatched flush.  ``buf`` is
         its fetched bytes (a slice of a group fetch); None pulls
         ``pe.dev_packed`` alone."""
-        if pe.host_embeddings is not None:
-            embeddings = pe.host_embeddings
-        else:
-            if buf is None:
-                buf = pe.dev_packed.cpu().numpy()
-            embeddings = self.embedders.unpack(buf, len(pe.ready))
-        frames_seen = set()
-        for i, p in enumerate(pe.ready):
-            emb = {name: vecs[i].tolist()
-                   for name, vecs in embeddings.items()}
-            rec = faces_mod.feature_record_for(
-                self.movie_id, p.frame, pe.tight_boxes[i], emb,
-                p.landmarks, self.d_w, self.d_h)
-            records.write_feature(self.features_file, rec)
-            self.counters.saved_boxes += 1
-            frames_seen.add(p.frame)
-        self.counters.saved_frames += len(frames_seen)
+        with self.spans.span("consume_write"):
+            if pe.host_embeddings is not None:
+                embeddings = pe.host_embeddings
+            else:
+                if buf is None:
+                    buf = pe.dev_packed.cpu().numpy()
+                    self.spans.count("fetch_bytes", buf.size)
+                embeddings = self.embedders.unpack(buf, len(pe.ready))
+            frames_seen = set()
+            for i, p in enumerate(pe.ready):
+                emb = {name: vecs[i].tolist()
+                       for name, vecs in embeddings.items()}
+                rec = faces_mod.feature_record_for(
+                    self.movie_id, p.frame, pe.tight_boxes[i], emb,
+                    p.landmarks, self.d_w, self.d_h)
+                records.write_feature(self.features_file, rec)
+                self.counters.saved_boxes += 1
+                frames_seen.add(p.frame)
+            self.counters.saved_frames += len(frames_seen)
 
     def _block_of(self, frame: int) -> int:
         for b in sorted(self.pixel_window, reverse=True):
@@ -446,13 +464,16 @@ class ShardConsumer:
             else:
                 break
 
-    def finish(self) -> ExtractCounters:
-        """Final trajectories + faces, scene-change file, close files,
-        mark the shard done."""
+    def finish_tracks(self) -> None:
+        """The last trajectories; every pending face's track is then
+        decided, for the last :meth:`plan_flush`."""
         for rec in self.assembler.finish():
             records.write_trajectory(self.traj_file, rec)
             self.counters.saved_trajectories += 1
-        self.flush_faces(None)
+
+    def finish(self) -> ExtractCounters:
+        """After :meth:`finish_tracks` and the last flush: the
+        scene-change file, close files, mark the shard done."""
         self.counters.overflow = self.assembler.overflow
         # cuts found in the overlap window are kept too, so the merge
         # union recovers cuts in the next shard's statistics warm-up
@@ -567,13 +588,13 @@ def fetch_group_size(cfg: ExtractConfig, n_frames: int, d_h: int,
 @dataclasses.dataclass
 class SpanRun:
     """What the loop over one span reports: its counters, the blocks it
-    ran, its fetch group and wire, and its per-phase wall seconds."""
+    ran, its fetch group and wire, and its spans and their counters."""
 
     counters: ExtractCounters
     blocks: int
     group: int
     wire_format: str
-    phase: Dict[str, float]
+    spans: Spans
 
 
 def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
@@ -621,16 +642,16 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
                                       budget_bytes=(2 << 30) // spans),
         pixel_format="i420" if wire_fmt == "yuv420-delta" else "rgb")
     jpeg_writer = make_jpeg_writer(cfg)
+    sp = Spans("extract", SPANS, COUNTERS)
     consumer = ShardConsumer(dirs, movie_id, cfg, beg, end, d_w, d_h,
-                             embedders, device, jpeg_writer,
+                             embedders, device, sp, jpeg_writer,
                              resume_state=resume_state)
 
-    # per-phase wall time, disjoint; they sum to the loop's wall time.
-    # "dispatch" is the block step as the host sees it (the tracker
-    # reads one scalar per frame, so it waits for the device there)
-    phase = {"decode": 0.0, "encode": 0.0, "upload": 0.0, "dispatch": 0.0,
-             "fetch": 0.0, "consume": 0.0, "flush_dispatch": 0.0}
-    # FACEREC_PHASE_LOG: the JAX package's per-block lines on stderr
+    # The loop's time goes to the seven disjoint PHASES.  "dispatch"
+    # only enqueues the block step; the host waits for the device in
+    # "upload", a pageable copy that starts once the device has run the
+    # work queued before it.  FACEREC_PHASE_LOG: the JAX package's
+    # per-block lines on stderr, read from the spans
     phase_log = os.environ.get("FACEREC_PHASE_LOG", "") not in ("", "0")
 
     def log(msg: str) -> None:
@@ -639,40 +660,38 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
     def dispatch_block(frame0: int, frames: np.ndarray) -> dict:
         """Encode + upload + the block step; nothing is pulled."""
         nonlocal scene_state, tracker_state
-        t0 = time.perf_counter()
-        if wire_fmt != "rgb":
-            frames_up = yuv_ops.encode_delta(frames)
-        else:
-            frames_up = frames
-        t1 = time.perf_counter()
-        dev = torch.from_numpy(frames_up).to(device)
-        t2 = time.perf_counter()
+        with sp.span("encode", frame0=frame0):
+            frames_up = (yuv_ops.encode_delta(frames) if wire_fmt != "rgb"
+                         else frames)
+        with sp.span("upload", frame0=frame0):
+            dev = torch.from_numpy(frames_up).to(device)
+        sp.count("upload_bytes", frames_up.nbytes)
         if phase_log and wire_fmt == "rgb":
-            log(f"block upload {t2 - t1:.3f}s f0={frame0}")
-        if wire_fmt == "rgb-delta":
-            dev = yuv_ops.delta_decode(dev)
-        elif wire_fmt == "yuv420-delta":
-            dev = yuv_ops.delta_i420_to_rgb(dev, d_h)
-        payload, scene_state, tracker_state = block_step(
-            detector, tracker_cfg, dev, scene_state, tracker_state, frame0)
-        packed = pack_tree(payload)
-        t3 = time.perf_counter()
-        phase["encode"] += t1 - t0
-        phase["upload"] += t2 - t1
-        phase["dispatch"] += t3 - t2
+            log(f"block upload {sp.last['upload']:.3f}s f0={frame0}")
+        with sp.span("dispatch", frame0=frame0):
+            if wire_fmt == "rgb-delta":
+                dev = yuv_ops.delta_decode(dev)
+            elif wire_fmt == "yuv420-delta":
+                dev = yuv_ops.delta_i420_to_rgb(dev, d_h)
+            payload, scene_state, tracker_state = block_step(
+                detector, tracker_cfg, dev, scene_state, tracker_state,
+                frame0, sp)
+            with sp.span("dispatch_pack"):
+                packed, spec = pack_tree(payload), tree_spec(payload)
         if phase_log and wire_fmt != "rgb":
-            log(f"block f0={frame0} encode={t1 - t0:.3f}s "
-                f"upload={t2 - t1:.3f}s enqueue={t3 - t2:.3f}s")
+            log(f"block f0={frame0} encode={sp.last['encode']:.3f}s "
+                f"upload={sp.last['upload']:.3f}s "
+                f"enqueue={sp.last['dispatch']:.3f}s")
         # the post-block device state goes with the block: dispatch runs
         # a group ahead of the files, so a checkpoint saves the state of
         # the last block consumed, not the loop's
         return {"frame0": frame0, "frames": frames, "dev": dev,
-                "packed": packed, "spec": tree_spec(payload),
+                "packed": packed, "spec": spec,
                 "scene_state": scene_state, "tracker_state": tracker_state}
 
     staged: List[dict] = []        # dispatched blocks awaiting a fetch
     deferred: List[PendingEmbed] = []   # embeddings awaiting a fetch
-    inflight = None                # {"copy", "deferred", "blocks"}
+    inflight = None                # {"copy", "deferred", "blocks", "group"}
     blocks_done = last_ckpt_blocks = 0
     consumed_through = start_frame
     consumed_state = (scene_state, tracker_state)
@@ -687,7 +706,9 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
             return
         joined = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
         inflight = {"copy": _HostCopy(joined), "deferred": deferred,
-                    "blocks": staged}
+                    "blocks": staged, "group": sp.counters["fetch_groups"]}
+        sp.count("fetch_groups", 1)
+        sp.count("fetch_bytes", joined.numel())
         if phase_log:
             log(f"start_fetch nbytes={joined.numel()} n_bufs={len(bufs)} "
                 f"t={time.perf_counter():.3f}")
@@ -698,56 +719,69 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
         features, consume the blocks, then one crop+embed for all of
         their flushes."""
         nonlocal inflight, blocks_done, consumed_through, consumed_state
-        t0 = time.perf_counter()
+        copy, group_i = inflight["copy"], inflight["group"]
+        with sp.span("fetch", group=group_i):
+            if phase_log:
+                with sp.span("fetch_compute_wait"):
+                    copy.wait_ready()
+            buf = copy.wait()
         if phase_log:
-            inflight["copy"].wait_ready()
-            t_ready = time.perf_counter()
-        buf = inflight["copy"].wait()
-        t1 = time.perf_counter()
-        if phase_log:
-            log(f"collect_fetch compute_wait={t_ready - t0:.3f}s "
-                f"transfer={t1 - t_ready:.3f}s nbytes={buf.size}")
-        off = 0
-        for pe in inflight["deferred"]:
-            consumer.complete_flush(pe, buf[off:off + pe.nbytes])
-            off += pe.nbytes
-        for blk in inflight["blocks"]:
-            n = int(blk["packed"].shape[0])
-            flags, emit, det_valid, landmarks = unpack_tree(
-                buf[off:off + n], *blk["spec"])
-            off += n
-            frame0, frames = blk["frame0"], blk["frames"]
-            consumer.feed_block(frame0, frames, flags, emit, det_valid,
-                                landmarks, dev_frames=blk["dev"])
-            consumer.plan_flush(consumer.block_watermark(frame0,
-                                                         len(frames)))
-            blocks_done += 1
-            consumed_through = frame0 + len(frames)
-            consumed_state = (blk["scene_state"], blk["tracker_state"])
-        if off != buf.size:
-            raise AssertionError(f"group fetch: {off} of {buf.size} bytes")
+            ready = sp.last["fetch_compute_wait"]
+            log(f"collect_fetch compute_wait={ready:.3f}s "
+                f"transfer={sp.last['fetch'] - ready:.3f}s "
+                f"nbytes={buf.size}")
+        with sp.span("consume", group=group_i):
+            off = 0
+            for pe in inflight["deferred"]:
+                consumer.complete_flush(pe, buf[off:off + pe.nbytes])
+                off += pe.nbytes
+            for blk in inflight["blocks"]:
+                frame0, frames = blk["frame0"], blk["frames"]
+                n = int(blk["packed"].shape[0])
+                with sp.span("consume_unpack", frame0=frame0):
+                    flags, emit, det_valid, landmarks = unpack_tree(
+                        buf[off:off + n], *blk["spec"])
+                off += n
+                consumer.feed_block(frame0, frames, flags, emit, det_valid,
+                                    landmarks, dev_frames=blk["dev"])
+                consumer.plan_flush(consumer.block_watermark(frame0,
+                                                             len(frames)))
+                blocks_done += 1
+                consumed_through = frame0 + len(frames)
+                consumed_state = (blk["scene_state"], blk["tracker_state"])
+            if off != buf.size:
+                raise AssertionError(
+                    f"group fetch: {off} of {buf.size} bytes")
         inflight = None
-        t2 = time.perf_counter()
-        pe = consumer.dispatch_flush_plans()
-        t3 = time.perf_counter()
-        if pe is not None:
-            if pe.host_embeddings is not None:
+        dispatch_flushes(group=group_i)
+
+    def dispatch_flushes(**ids: int):
+        """One crop+embed over the queued flush plans.  A host bank's
+        features are written at once; a device bank's embeddings ride
+        the next fetch."""
+        with sp.span("flush_dispatch", **ids):
+            pe = consumer.dispatch_flush_plans()
+        if pe is not None and pe.host_embeddings is None:
+            deferred.append(pe)
+        elif pe is not None:
+            with sp.span("consume", **ids):
                 consumer.complete_flush(pe)
-            else:
-                deferred.append(pe)
-        phase["fetch"] += t1 - t0
-        phase["consume"] += (t2 - t1) + (time.perf_counter() - t3)
-        phase["flush_dispatch"] += t3 - t2
+
+    def write_deferred():
+        """Pull each dispatched flush alone and write its features."""
+        nonlocal deferred
+        with sp.span("consume"):
+            for pe in deferred:
+                consumer.complete_flush(pe)
+        deferred = []
 
     def maybe_checkpoint():
-        nonlocal last_ckpt_blocks, deferred
+        nonlocal last_ckpt_blocks
         if (cfg.checkpoint_every_blocks <= 0 or blocks_done
                 - last_ckpt_blocks < cfg.checkpoint_every_blocks):
             return
         # the files must hold every dispatched flush before a snapshot
-        for pe in deferred:
-            consumer.complete_flush(pe)
-        deferred = []
+        write_deferred()
         ckpt.save_checkpoint(
             ckpt_path, next_frame=consumed_through,
             scene_state=consumed_state[0], tracker_state=consumed_state[1],
@@ -762,11 +796,10 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
     try:
         with torch.inference_mode():
             while True:
-                t0 = time.perf_counter()
-                nxt = next(block_iter, None)
-                phase["decode"] += time.perf_counter() - t0
+                with sp.span("decode"):
+                    nxt = next(block_iter, None)
                 if phase_log:
-                    log(f"decode_wait {time.perf_counter() - t0:.3f}s")
+                    log(f"decode_wait {sp.last['decode']:.3f}s")
                 if nxt is None:
                     break
                 staged.append(dispatch_block(*nxt))
@@ -782,6 +815,12 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
                     collect_fetch()
                     maybe_checkpoint()
                 start_fetch()
+            # the last trajectories decide every face still pending
+            with sp.span("consume"):
+                consumer.finish_tracks()
+                consumer.plan_flush(None)
+            dispatch_flushes()
+            write_deferred()
             counters = consumer.finish()
     finally:
         reader.close()
@@ -790,7 +829,7 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
 
     if os.path.exists(ckpt_path):
         os.remove(ckpt_path)
-    return SpanRun(counters, blocks_done, group, wire_fmt, phase)
+    return SpanRun(counters, blocks_done, group, wire_fmt, sp)
 
 
 def run_extract(
@@ -864,8 +903,7 @@ def run_extract(
     report.set("wire_format", run.wire_format)
     report.set("encode_path", yuv_ops.encode_path()
                if run.wire_format != "rgb" else None)
-    for key, value in run.phase.items():
-        report.set(f"{key}_seconds", round(value, 3))
+    report.set_totals(run.spans.totals())
     report.write(dirs.root)
 
     print(f"Saved {counters.saved_boxes} boxes from "

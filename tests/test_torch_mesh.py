@@ -159,6 +159,31 @@ def test_mesh_report(runs):
     assert c["dispatch_seconds"] > 0
 
 
+def test_mesh_report_sums_spans_and_counters(runs, clip):
+    """Every span's seconds and every counter, summed over the spans."""
+    from facerec_torch.pipeline.extract import COUNTERS, PHASES, SPANS
+
+    out, counters = runs
+    with open(os.path.join(out["mesh"], f"{MOVIE}-data",
+                           "run_report.json")) as f:
+        c = json.load(f)[f"extract_mesh_{N}"]["counters"]
+    assert all(c[f"{name}_seconds"] >= 0 for name in SPANS)
+    assert c["consume_write_seconds"] <= c["consume_seconds"]
+    assert c["flush_embed_seconds"] <= c["flush_dispatch_seconds"]
+    assert sum(c["span_loop_seconds"]) == pytest.approx(
+        sum(c[f"{p}_seconds"] for p in PHASES), abs=1e-3 * (N + 7))
+    assert set(COUNTERS) <= set(c)
+    assert c["embed_crops"] == sum(x.saved_boxes for x in counters)
+    assert c["fetch_groups"] >= N
+    frames = sum(x.frames_processed for x in counters)
+    assert c["upload_bytes"] == frames * clip.height * clip.width * 3
+    # the scripted detections of each span's frames, its overlap included
+    assert c["detections"] == sum(
+        min(8, len(clip.truth.get(f, [])))
+        for beg, _, stop in plan_spans(clip.n_frames, N, 5)
+        for f in range(beg, stop))
+
+
 def test_mesh_merge_matches_serial_and_unsharded(runs, clip, tmp_path):
     out, _ = runs
     cfg = MergeConfig(min_face_size=20)
