@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernels from the repo's sources at first use.
+"""Build the port's native libraries from the repo's sources at first use.
 
-Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a``, each
+``csrc/*.cpp`` file (host code) with the host C++ compiler, into a
 shared library with a plain C interface, loaded with ctypes.  Libraries
 go into ``facerec_torch/_build/`` (listed in ``.gitignore``) under a
-name keyed by a hash of the source and the flags, so an edited kernel
-is rebuilt and a built one is reused.  A missing ``nvcc`` or a failed
+name keyed by a hash of the source and the flags, so an edited source
+is rebuilt and a built one is reused.  A missing compiler or a failed
 compile raises: there is no fallback to the plain versions.
 
 A variant builds one source a second time with its own defines under
@@ -29,6 +30,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # flags of one source only: the tracker rounds every float expression
 # as its plain version's separate tensor operations do (no contraction
 # of a multiply and an add into one fma)
@@ -38,14 +40,22 @@ VARIANTS = {"tracker_clocks": ("tracker", ("-DFR_TRACKER_CLOCKS",))}
 
 
 def source(name: str) -> str:
-    """The ``csrc`` source that library ``name`` is built from."""
-    return os.path.join(CSRC_DIR, f"{VARIANTS.get(name, (name,))[0]}.cu")
+    """The ``csrc`` source that library ``name`` is built from: its
+    ``.cu`` file, else its ``.cpp`` file."""
+    stem = os.path.join(CSRC_DIR, VARIANTS.get(name, (name,))[0])
+    return stem + ".cu" if os.path.exists(stem + ".cu") else stem + ".cpp"
+
+
+def is_host(name: str) -> bool:
+    """Whether library ``name`` is host code (a ``.cpp`` source)."""
+    return source(name).endswith(".cpp")
 
 
 def flags(name: str) -> tuple:
-    """nvcc's flags for library ``name``."""
+    """The compiler's flags for library ``name``."""
     src, extra = VARIANTS.get(name, (name, ()))
-    return NVCC_FLAGS + EXTRA_FLAGS.get(src, ()) + extra
+    base = CXX_FLAGS if is_host(name) else NVCC_FLAGS
+    return base + EXTRA_FLAGS.get(src, ()) + extra
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -70,6 +80,17 @@ def find_nvcc() -> str:
     return found
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler: ``$CXX``, then ``c++`` and ``g++``
+    on ``PATH``."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        found = c and shutil.which(c)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler ($CXX, c++, g++); the host "
+                       "libraries cannot be built")
+
+
 def library_path(name: str) -> str:
     """Where library ``name`` lives."""
     with open(source(name), "rb") as f:
@@ -80,37 +101,41 @@ def library_path(name: str) -> str:
 
 def build(name: str, verbose: bool = False) -> str:
     """Compile library ``name`` unless an up-to-date one exists;
-    returns the library path.  ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report (registers, shared memory, spills)."""
+    returns the library path.  ``verbose`` prints the compiler's
+    report, for a kernel with ``-Xptxas -v`` (registers, shared
+    memory, spills)."""
     out = library_path(name)
     if os.path.exists(out) and not verbose:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *flags(name)]
-    if verbose:
+    host = is_host(name)
+    cmd = [find_cxx() if host else find_nvcc(), *flags(name)]
+    if verbose and not host:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, source(name)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    tool = os.path.basename(cmd[0])
     if proc.returncode != 0:
         os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {name} "
+        raise RuntimeError(f"{tool} failed for {name} "
                            f"({os.path.basename(source(name))}):\n"
                            f"{proc.stderr}")
     if verbose:
-        print(f"[nvcc {name}]\n{proc.stderr}", end="", flush=True)
+        print(f"[{tool} {name}]\n{proc.stderr}", end="", flush=True)
     os.replace(tmp, out)   # atomic: a concurrent build never sees half
     return out
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Build every ``csrc/*.cu`` and every variant at once, one ``nvcc``
-    per library, all started together; returns {name: library path}."""
+    """Build every ``csrc`` source and every variant at once, one
+    compiler per library, all started together; returns {name: library
+    path}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = sorted([f[:-3] for f in os.listdir(CSRC_DIR)
-                    if f.endswith(".cu")] + list(VARIANTS))
+    names = sorted([os.path.splitext(f)[0] for f in os.listdir(CSRC_DIR)
+                    if f.endswith((".cu", ".cpp"))] + list(VARIANTS))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = {n: pool.submit(build, n, verbose) for n in names}
         return {n: f.result() for n, f in futures.items()}

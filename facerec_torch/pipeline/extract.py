@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import os
 import sys
 import time
@@ -38,6 +39,7 @@ import torch
 from facerec_torch.config import (FACENET_DIMS, FACENET_MODELS,
                                   FACE_IMAGE_SIZE, ExtractConfig)
 from facerec_torch.contract import MovieDirs, records
+from facerec_torch.contract.featjson import FeatureWriter
 from facerec_torch.contract.naming import box_tag, movie_id_from_filename, \
     shard_file_name
 from facerec_torch.models.facenet import FaceNetEmbedder, PooledEmbedders
@@ -73,7 +75,8 @@ SPANS = PHASES + ("dispatch_scene", "dispatch_detector", "dispatch_tracker",
                   "dispatch_pack", "consume_unpack", "consume_assemble",
                   "consume_plan", "consume_write", "flush_embed")
 COUNTERS = ("embed_crops", "embed_slots", "embed_dispatches", "detections",
-            "fetch_bytes", "fetch_groups", "upload_bytes")
+            "fetch_bytes", "fetch_groups", "upload_bytes", "feature_records",
+            "feature_records_native", "feature_bytes")
 
 
 @dataclasses.dataclass
@@ -231,6 +234,8 @@ class ShardConsumer:
         self.embedders = embedders
         self.device = device
         self.jpeg_writer = jpeg_writer
+        # feature lines by the native writer; on a card it must build
+        self.feature_writer = FeatureWriter(required=device.type == "cuda")
 
         self.features_path = os.path.join(
             dirs.features, shard_file_name("features", movie_id, beg, end))
@@ -417,28 +422,41 @@ class ShardConsumer:
 
     def complete_flush(self, pe: PendingEmbed,
                        buf: Optional[np.ndarray] = None) -> None:
-        """Write the feature records of a dispatched flush.  ``buf`` is
+        """Write the feature records of a dispatched flush, in one
+        write: the native writer's lines, else ``json``'s.  ``buf`` is
         its fetched bytes (a slice of a group fetch); None pulls
         ``pe.dev_packed`` alone."""
         with self.spans.span("consume_write"):
+            n = len(pe.ready)
             if pe.host_embeddings is not None:
                 embeddings = pe.host_embeddings
             else:
                 if buf is None:
                     buf = pe.dev_packed.cpu().numpy()
                     self.spans.count("fetch_bytes", buf.size)
-                embeddings = self.embedders.unpack(buf, len(pe.ready))
-            frames_seen = set()
-            for i, p in enumerate(pe.ready):
-                emb = {name: vecs[i].tolist()
-                       for name, vecs in embeddings.items()}
-                rec = faces_mod.feature_record_for(
+                embeddings = self.embedders.unpack(buf, n)
+
+            def record(i: int, emb: dict) -> dict:
+                p = pe.ready[i]
+                return faces_mod.feature_record_for(
                     self.movie_id, p.frame, pe.tight_boxes[i], emb,
                     p.landmarks, self.d_w, self.d_h)
-                records.write_feature(self.features_file, rec)
-                self.counters.saved_boxes += 1
-                frames_seen.add(p.frame)
-            self.counters.saved_frames += len(frames_seen)
+
+            text = self.feature_writer.lines(n, record, embeddings)
+            if text is not None:
+                self.spans.count("feature_records_native", n)
+            else:
+                out = io.StringIO()
+                for i in range(n):
+                    records.write_feature(out, record(i, {
+                        name: vecs[i].tolist()
+                        for name, vecs in embeddings.items()}))
+                text = out.getvalue()
+            self.features_file.write(text)
+            self.spans.count("feature_records", n)
+            self.spans.count("feature_bytes", len(text))
+            self.counters.saved_boxes += n
+            self.counters.saved_frames += len({p.frame for p in pe.ready})
 
     def _block_of(self, frame: int) -> int:
         for b in sorted(self.pixel_window, reverse=True):

@@ -24,7 +24,10 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   padded batch slots embedded), ``embed_dispatches``, ``detections``
   (valid detections of the blocks consumed), ``fetch_bytes`` and
   ``fetch_groups`` (device→host bytes and grouped fetches),
-  ``upload_bytes`` (host→device bytes of the block uploads).
+  ``upload_bytes`` (host→device bytes of the block uploads),
+  ``feature_records`` (lines written to the features file),
+  ``feature_records_native`` (of them, those the native writer wrote,
+  ``contract/featjson.py``) and ``feature_bytes`` (their bytes).
 
 ``FACEREC_PHASE_LOG`` prints its ``[phase]`` lines from the spans.
 """

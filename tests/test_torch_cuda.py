@@ -191,7 +191,8 @@ def test_delta_i420_to_rgb_card_equals_cpu(card, b, h, w):
 def test_grouped_rgb_delta_extract_card_equals_cpu(card, tmp_path):
     """rgb-delta with fetch groups of 3 and checkpoints: the card's
     trajectories, scene changes and features are the CPU's (features
-    within 1e-5), and the scene kernels ran once per block."""
+    within 1e-5), the scene kernels ran once per block, and the native
+    writer wrote every feature line on the card."""
     import json
     import os
 
@@ -231,6 +232,11 @@ def test_grouped_rgb_delta_extract_card_equals_cpu(card, tmp_path):
         assert a == b
         for k in ea:
             np.testing.assert_allclose(ea[k], eb[k], rtol=0, atol=1e-5)
+    with open(os.path.join(outs["cuda"], "run_report.json")) as f:
+        c = json.load(f)["extract_0-70"]["counters"]
+    assert c["feature_records_native"] == c["feature_records"] == len(recs[0])
+    assert c["feature_bytes"] == os.path.getsize(
+        os.path.join(outs["cuda"], "features", name))
 
 
 @pytest.mark.parametrize("stream,max_tracks,d", [
