@@ -1,6 +1,6 @@
 """Device ms a real crop under the harness's range around the bank's
-crop+embed dispatch (ops/crops.py, models/facenet.py, four FaceNets), in
-the traced window: padded crop slots count as waste."""
+crop+embed dispatch (the crop and the configuration's embedders), in the
+traced window: padded crop slots count as waste."""
 
 
 def read(ctx):

@@ -9,7 +9,8 @@ closes the profiler at block boundaries: it starts at the block
 synchronising, so the traced window holds whole fetch groups of the
 steady loop.  Both wrappers put a ``record_function`` range around their
 calls while the profiler runs, and the bank counts the real crops there
-(its batch is padded by repeating the last).
+(its batch is padded by repeating the last).  The bank's dispatch passes
+whatever follows the crop boxes (a family's landmarks) on unchanged.
 """
 from __future__ import annotations
 
@@ -104,10 +105,12 @@ def make_bank(base_cls, embedders, probe: Probe):
     whose crop+embed dispatch is ranged and counted."""
 
     class Bank(base_cls):
-        def dispatch_crop_embed(self, stack, frame_idx, crop_boxes):
+        def dispatch_crop_embed(self, stack, frame_idx, crop_boxes, *args,
+                                **kwargs):
             with probe.range(EMBED_RANGE):
                 out = super().dispatch_crop_embed(stack, frame_idx,
-                                                  crop_boxes)
+                                                  crop_boxes, *args,
+                                                  **kwargs)
             if probe.profiling():
                 w = probe.in_window
                 w["dispatches"] += 1

@@ -5,7 +5,8 @@ The detector sees each pool frame once (a frame's detections do not
 depend on its neighbours), the scene statistics are taken over the
 pool for the first pass and for the later ones (they differ in the
 first two frames only), and SORT then runs over every frame of the
-film.  Embeddings are computed on demand for the faces a check draws.
+film.  Embeddings are computed on demand for the faces a check draws, by
+the embedder family's reference.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from portbench.reference import detect, embed, scene, track
+from portbench.reference import detect, scene, track
 
 
 @contextlib.contextmanager
@@ -41,13 +42,15 @@ class Outputs:
     cuts: List[int]
     pool_dets: List["detect.FrameDets"]   # the first pass, frame by frame
     trajectories: List[dict]
-    faces: List[dict]                     # frame, box, keypoints
+    faces: List[dict]                     # frame, box, keypoints(, landmarks)
     embed: object = None                  # faces index list → {name: (n, d)}
 
 
 class Reference:
     def __init__(self, pool: np.ndarray, config: dict, detector_state,
-                 facenet_states, device: torch.device, tf32: bool = False):
+                 embedder, device: torch.device, tf32: bool = False):
+        """``embedder``: the embedder family's reference (frames, faces)
+        → {name: (n, dim)}."""
         ext = config["extract"]
         self.pool, self.ext, self.device, self.tf32 = pool, ext, device, tf32
         self.h, self.w = pool.shape[1:3]
@@ -56,7 +59,7 @@ class Reference:
             max_detections=ext["max_detections"],
             score_threshold=ext["face_threshold"],
             min_face_size=ext["min_face_size"])
-        self.embedders = embed.Embedders(facenet_states, device)
+        self.embedder = embedder
 
     def run(self, n_frames: int, chunk: int = 32) -> Outputs:
         pool, ext, n = self.pool, self.ext, len(self.pool)
@@ -78,17 +81,14 @@ class Reference:
         out.embed = lambda idx: self.embed([out.faces[i] for i in idx])
         return out
 
-    def embed(self, faces: Sequence[dict], batch: int = 64
-              ) -> Dict[str, np.ndarray]:
-        """The four embeddings of saved faces (frame, box)."""
-        n, px = len(self.pool), []
-        for a in range(0, len(faces), batch):
-            part = faces[a:a + batch]
-            frames = torch.from_numpy(np.stack(
-                [self.pool[f["frame"] % n] for f in part])).to(self.device)
-            boxes = torch.tensor([embed.crop_box(f["box"], self.w, self.h)
-                                  for f in part], dtype=torch.float32,
-                                 device=self.device)
-            px.append(embed.crops(frames, boxes))
+    def embed(self, faces: Sequence[dict]) -> Dict[str, np.ndarray]:
+        """The embeddings of saved faces: their pool frames go to the
+        device once each, and each face's ``frame`` becomes its frame's
+        index there."""
+        n = len(self.pool)
+        keys = sorted({f["frame"] % n for f in faces})
+        at = {k: i for i, k in enumerate(keys)}
+        frames = torch.from_numpy(self.pool[keys]).to(self.device)
         with precision(self.tf32):
-            return self.embedders(torch.cat(px), batch)
+            return self.embedder(frames, [dict(f, frame=at[f["frame"] % n])
+                                          for f in faces])

@@ -14,7 +14,8 @@ A track's trajectory record holds its entries up to its last matched
 frame, boxes rounded half to even and clipped to the frame, and is
 written when its first ``min_hits`` entries were all matched.  A face is
 saved at each frame divisible by ``save_every`` for each detection that
-joined such a track: its posterior box, rounded, and its landmarks.
+joined such a track: its posterior box, rounded, and its landmarks,
+rounded (``keypoints``) and as they are (``landmarks``, (5, 2)).
 """
 from __future__ import annotations
 
@@ -133,7 +134,7 @@ def round_clip(box, w: int, h: int) -> List[int]:
 @dataclasses.dataclass
 class Result:
     trajectories: List[dict]      # {"start", "len", "bbs", "detected"}
-    faces: List[dict]             # {"frame", "box", "keypoints"}
+    faces: List[dict]             # {"frame", "box", "keypoints", "landmarks"}
 
 
 def run(dets: Sequence, cuts: np.ndarray, width: int, height: int,
@@ -225,5 +226,6 @@ def run(dets: Sequence, cuts: np.ndarray, width: int, height: int,
             "frame": f,
             "box": round_clip(t.boxes[f - t.first], width, height),
             "keypoints": [int(round(float(v))) for v in
-                          np.asarray(ldm, np.float64).reshape(-1)]})
+                          np.asarray(ldm, np.float64).reshape(-1)],
+            "landmarks": np.asarray(ldm, np.float64).reshape(5, 2)})
     return Result(trajectories, faces)

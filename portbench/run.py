@@ -4,14 +4,16 @@
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Set-up paints the cell's pool of frames from the seed, makes the four
-FaceNets' weights on the card, loads the detector checkpoint, runs the
+Set-up paints the cell's pool of frames from the seed, makes the
+embedders' weights on the card, loads the detector checkpoint, runs the
 crop+embed bank once on a full batch, and runs the extract stage once on
 a short film: every shape the window uses, and one steady fetch group
 whose rate sizes the window's film.  The window is one ``run_extract``
 call over a film that loops over the pool, whole passes of it, sized to
 last about ``--seconds``.  After it, the outputs are judged against the
-plain reference (:mod:`portbench.compare`).
+plain reference (:mod:`portbench.compare`).  What the harness knows of
+the embedders comes from the configuration's embedder family
+(:mod:`portbench.embedders`).
 
 ``--trace 0`` prints the end-to-end metrics, ``--trace 1`` the
 per-layer ones: the extract loop's from the window's own report, the
@@ -44,6 +46,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WARM_GROUPS = 3
 # the profiled extract: a group before, these groups profiled, a group after
 PROFILED_GROUPS = 2
+# the embedder families' files, <family>.py, and the family of a
+# configuration that names none
+FAMILIES = os.path.join(HERE, "embedders")
+DEFAULT_FAMILY = "facenet"
 
 
 def process_start() -> float:
@@ -164,14 +170,26 @@ def passes_for(rate: float, seconds: float, pool_frames: int) -> int:
     return max(1, round(rate * seconds / pool_frames))
 
 
+def load_file(path: str, name: str):
+    """The module of a Python file, loaded by its path."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def embedder_family(config: dict):
+    """The module of the configuration's embedder family."""
+    name = config.get("embedder_family", DEFAULT_FAMILY)
+    return load_file(os.path.join(FAMILIES, f"{name}.py"),
+                     "portbench_family_" + name)
+
+
 def layer_metrics(names, ctx):
     out = {}
     for name, unit in names:
-        path = os.path.join(HERE, "layer_metrics", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(
-            "portbench_metric_" + name.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = load_file(os.path.join(HERE, "layer_metrics", f"{name}.py"),
+                        "portbench_metric_" + name.replace(".", "_"))
         value = mod.read(ctx)
         if value is not None:
             out[name] = {"value": value, "unit": unit}
@@ -196,9 +214,9 @@ def run_cell(loaded, seed: int, seconds: float, trace: bool, device,
     from portbench import compare, film
     from portbench.reference.nets import detector_state_from_npz
     from portbench.reference.pipeline import Reference
-    from portbench.weights import facenet_states
 
     cell, config, traffic, limits = loaded
+    family = embedder_family(config)
     det_path = film.detector_weights(config)
     block = config["extract"]["block_frames"]
     dev_info = card(device)
@@ -208,35 +226,33 @@ def run_cell(loaded, seed: int, seconds: float, trace: bool, device,
 
     pool, cuts = film.paint_pool(config, traffic, seed)
     log(f"pool: {pool.shape}, cuts {cuts}")
-    states = facenet_states(config["facenets"], seed, device)
+    states = family.states(config, seed, device)
     tmp = tempfile.mkdtemp(prefix="portbench-")
     try:
         if control_blocks:
             n = control_blocks * block
-            ref = lambda tf32: Reference(pool, config, detector_state_from_npz(
-                det_path), states, device, tf32=tf32).run(n)
+            ref = lambda tf32: Reference(
+                pool, config, detector_state_from_npz(det_path),
+                family.reference(states, device), device, tf32=tf32).run(n)
             got, want = ref(True), ref(False)
             correct, checks = held(compare.compare(got, want, seed,
                                                    notes=[]), limits)
             log(f"card: {card_line(device)}")
             return {"control": True, "frames": n, "correct": correct,
                     "checks": checks}
-        return _program_run(cell, config, pool, states, det_path, device,
-                            seed, seconds, trace, t_start, tmp, dev_info,
-                            limits, sync)
+        return _program_run(cell, config, family, pool, states, det_path,
+                            device, seed, seconds, trace, t_start, tmp,
+                            dev_info, limits, sync)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _program_run(cell, config, pool, states, det_path, device, seed,
+def _program_run(cell, config, family, pool, states, det_path, device, seed,
                  seconds, trace, t_start, tmp, dev_info, limits, sync):
-    import numpy as np
     import torch
 
     from facerec_torch.config import ExtractConfig
-    from facerec_torch.models.facenet import FaceNetEmbedder
-    from facerec_torch.pipeline.extract import (EMBED_BATCH, EmbedderBank,
-                                                build_detector,
+    from facerec_torch.pipeline.extract import (build_detector,
                                                 fetch_group_size,
                                                 run_extract)
     from facerec_torch.runtime import launches
@@ -252,9 +268,7 @@ def _program_run(cell, config, pool, states, det_path, device, seed,
     cfg = ExtractConfig(resume=False, **ext)
     p = probe.Probe(sync)
     detector = probe.Detector(build_detector(cfg, h, w, det_path, device), p)
-    bank = probe.make_bank(EmbedderBank, {
-        name: FaceNetEmbedder(name, dim, device=device, state_dict=sd)
-        for name, (dim, sd) in states.items()}, p)
+    bank = family.program_bank(states, device, p)
     names = list(states)
 
     def extract(n_blocks: int, out: str):
@@ -266,10 +280,7 @@ def _program_run(cell, config, pool, states, det_path, device, seed,
         # below load none of its kernels
         with torch.inference_mode():
             stack = torch.from_numpy(pool[:block]).to(device)
-            bank.dispatch_crop_embed(
-                stack, np.arange(EMBED_BATCH) % block,
-                np.tile(np.float32([[w / 2 - 20, h / 2 - 24, w / 2 + 20,
-                                     h / 2 + 24]]), (EMBED_BATCH, 1)))
+            family.warm(bank, stack, block, h, w)
             del stack
         sync()
         log("bank warm")
@@ -334,8 +345,8 @@ def _program_run(cell, config, pool, states, det_path, device, seed,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    ref = Reference(pool, config, detector_state_from_npz(det_path), states,
-                    device)
+    ref = Reference(pool, config, detector_state_from_npz(det_path),
+                    family.reference(states, device), device)
     want = ref.run(n_frames)
     notes = []
     numbers = compare.compare(got, want, seed, notes=notes)
@@ -352,8 +363,7 @@ def _program_run(cell, config, pool, states, det_path, device, seed,
         ctx = {"report": report, "trace": summary, "window": p.in_window,
                "block_frames": block, "device_kind": dev_info["kind"],
                "detector_flops_per_frame": det_flops,
-               "facenet_flops_per_crop": sum(
-                   counts.facenet_flops(d) for d, _ in states.values()),
+               "embed_flops_per_crop": family.flops_per_crop(states),
                "scene_bytes_per_block": counts.scene_bytes(block, h, w),
                "peaks": film.load_json(".", "peaks")}
         wanted = [(m["name"], m["unit"]) for m in film.benchmark()["per_layer"]

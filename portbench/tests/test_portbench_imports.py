@@ -26,7 +26,8 @@ def test_harness_and_program_load_no_jax():
     mods = _top_level_modules(
         "import portbench.run, portbench.film, portbench.compare, "
         "portbench.probe, portbench.trace, portbench.counts, "
-        "portbench.weights, portbench.reference.pipeline\n"
+        "portbench.weights, portbench.reference.pipeline, "
+        "portbench.embedders.facenet\n"
         "import facerec_torch.pipeline.extract, facerec_torch.config, "
         "facerec_torch.models.facenet, facerec_torch.runtime.launches")
     assert "facerec_torch" in mods and "portbench" in mods
@@ -38,7 +39,14 @@ def test_reference_loads_nothing_of_the_program():
         "import portbench.reference.pipeline, portbench.reference.nets, "
         "portbench.reference.detect, portbench.reference.scene, "
         "portbench.reference.track, portbench.reference.embed, "
-        "portbench.compare, portbench.counts, portbench.weights")
+        "portbench.compare, portbench.counts, portbench.weights, "
+        "portbench.probe, portbench.embedders.facenet\n"
+        "import torch, portbench.run as r\n"
+        "fam, cpu = r.embedder_family({}), torch.device('cpu')\n"
+        "ref = fam.reference(fam.states({'facenets': {'a': 128}}, 0, cpu), "
+        "cpu)\n"
+        "ref(torch.zeros(1, 96, 128, 3, dtype=torch.uint8), [{'frame': 0, "
+        "'box': [30, 20, 70, 68], 'landmarks': torch.zeros(5, 2)}])")
     assert "facerec_torch" not in mods
     assert not mods & FORBIDDEN
 

@@ -8,7 +8,10 @@ from portbench import film, run
 def ctx(**over):
     c = {"report": {"blocks": 10, "fetch_seconds": 0.5, "upload_seconds": 1,
                     "dispatch_seconds": 2, "consume_seconds": 0.5,
-                    "flush_dispatch_seconds": 0.5},
+                    "flush_dispatch_seconds": 0.5,
+                    "consume_write_seconds": 0.3,
+                    "consume_assemble_seconds": 0.1, "embed_crops": 300,
+                    "embed_slots": 320},
          "trace": {"window_s": 2.0, "busy_s": 1.5,
                    "kernels": {"void hist256_kernel<RgbSrc>(...)": 0.0008,
                                "cum_lookup_kernel(...)": 0.0008,
@@ -22,7 +25,7 @@ def ctx(**over):
                     "dispatches": 2},
          "block_frames": 128, "device_kind": "NVIDIA H100 80GB HBM3",
          "detector_flops_per_frame": 16.6e9,
-         "facenet_flops_per_crop": 11.3e9,
+         "embed_flops_per_crop": 11.3e9,
          "scene_bytes_per_block": 415e6,
          "peaks": film.load_json(".", "peaks")}
     c.update(over)
@@ -49,6 +52,9 @@ def test_every_metric_has_a_reader_and_reads():
     flops = 8 * 128 * 16.6e9 + 300 * 11.3e9
     assert got["mfu_f32"]["value"] == pytest.approx(
         100 * flops / 2.0 / 67e12)
+    assert got["loop.write_ms_per_block"]["value"] == pytest.approx(30)
+    assert got["loop.assemble_ms_per_block"]["value"] == pytest.approx(10)
+    assert got["embed.crop_fill"]["value"] == pytest.approx(93.75)
 
 
 def test_nothing_to_read_gives_no_metric():
@@ -61,5 +67,8 @@ def test_nothing_to_read_gives_no_metric():
                         "dispatches": 0},
                 device_kind="cpu")
     got = run.layer_metrics(names(), empty)
+    # the window's report still reads; the trace has nothing
     assert set(got) == {"loop.fetch_wait_ms_per_block",
-                        "loop.host_ms_per_block", "loop.upload_ms_per_block"}
+                        "loop.host_ms_per_block", "loop.upload_ms_per_block",
+                        "loop.write_ms_per_block",
+                        "loop.assemble_ms_per_block", "embed.crop_fill"}
