@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``facerec_torch/csrc``, holds each
 against its plain PyTorch version on the card, drives the extract
 stage end to end at full model width (detector w96 with the committed
 probe weights, four full FaceNets, 128-frame blocks) on an in-memory
-synthetic film, then the whole orchestrated pipeline (extract → merge →
+synthetic film, and again with the ArcFace bank (``arcface``:
+IResNet-100 on crops from ``align_warp``), then the whole orchestrated
+pipeline (extract → merge →
 cluster → classify) on the same film, the multi-device paths on the
 one card (``multi_device``: the mesh extract as two processes sharing
 it, ``--mesh 1``, the sharded block step and the data-parallel training
@@ -37,12 +39,14 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from facerec_torch.config import (ACTOR_ID_PREFIX, EMB_NAME, FACENET_DIMS,
-                                  ClassifyConfig, ClusterConfig,
-                                  ExtractConfig, MergeConfig, PipelineConfig)
+from facerec_torch.config import (ACTOR_ID_PREFIX, ARCFACE_NAME, EMB_NAME,
+                                  FACENET_DIMS, ClassifyConfig,
+                                  ClusterConfig, ExtractConfig, MergeConfig,
+                                  PipelineConfig)
 from facerec_torch.models.detector import DetectorHarness, fit_input_size
-from facerec_torch.ops import _build, assignment
+from facerec_torch.ops import _build, align, assignment
 from facerec_torch.ops import equalize as eqm
 from facerec_torch.ops import scene as scene_ops
 from facerec_torch.pipeline.extract import PHASES, EmbedderBank, run_extract
@@ -381,13 +385,15 @@ def reset_launches() -> None:
     kernel_launches.reset()
 
 
-def path_launches(n_blocks: int) -> dict:
+def path_launches(n_blocks: int, flushes: int = 0) -> dict:
     """The launches a path over ``n_blocks`` frame blocks must count:
     the scene leg takes hist256's RGB entry, then cum_lookup, once per
     block (the plane entry never runs there), and the tracker scans each
-    block in one tracker_scan launch."""
+    block in one tracker_scan launch; an ArcFace bank aligns each of its
+    ``flushes`` in one align_warp launch, a FaceNet bank aligns
+    nothing."""
     return {"hist256": 0, "hist256_rgb": n_blocks, "cum_lookup": n_blocks,
-            "tracker": n_blocks}
+            "tracker": n_blocks, "align_warp": flushes}
 
 
 def wall_ms(fn, runs: int = 3, device=None) -> float:
@@ -500,6 +506,143 @@ def phase_main_path(dev, out_root, film):
     emit(result)
     result["features_path"] = os.path.join(data, "features",
                                            f"features_777_{rng}.jsonl")
+    return result
+
+
+# --- the alignment kernel -------------------------------------------------
+
+ALIGN_SOURCE = "facerec_torch/csrc/align.cu"
+# the crowd's flush: ~192 crops from a stack of four 128-frame blocks
+ALIGN_CASE = (192, 512, 576, 768)       # (N, B, H, W)
+# the least bytes of one crop: its (3, 112, 112) float32 output written
+# once and its five landmarks read once (the sampled pixels left out)
+ALIGN_CROP_BYTES = 3 * align.SIZE ** 2 * 4 + 5 * 2 * 4
+
+
+def align_case(dev, n, b, h, w, seed=0):
+    """Noise frames and ``n`` faces of 30 to 40 px, turned by up to
+    ±0.6 rad and jittered, across the frame and off its edges (four on
+    its corners), and one degenerate set (all five points at one
+    place)."""
+    rng = np.random.default_rng(seed)
+    frames = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(seed))
+    th = rng.uniform(-0.6, 0.6, n)
+    rot = np.stack([np.cos(th), -np.sin(th), np.sin(th), np.cos(th)],
+                   1).reshape(n, 2, 2)
+    tpl = np.asarray(align.TEMPLATE) - align.SIZE / 2
+    centre = rng.uniform([-20, -20], [w + 20, h + 20], (n, 1, 2))
+    centre[1:5, 0] = [[0, 0], [w, 0], [0, h], [w, h]]
+    ldm = np.float32(np.einsum("pj,nij->npi", tpl, rot)
+                     * rng.uniform(30, 40, (n, 1, 1)) / align.SIZE
+                     + centre + rng.normal(0, 1.0, (n, 5, 2)))
+    ldm[0] = ldm[0, :1]                           # no spread
+    idx = torch.from_numpy(rng.integers(0, b, n)).to(dev)
+    return frames, idx, torch.from_numpy(ldm).to(dev)
+
+
+def library_align(frames, idx, ldm):
+    """The same warp from the library: ``affine_grid`` over each crop's
+    inverse map, carried into its normalised coordinates (corners not
+    aligned: a crop pixel x sits at (2x + 1)/112 - 1, a frame column u at
+    (2u + 1)/W - 1), then ``grid_sample``'s bilinear taps with zeros
+    outside, and the same scaling."""
+    n, s = int(ldm.shape[0]), align.SIZE
+    h, w = frames.shape[1:3]
+    a11, a12, b1, a21, a22, b2 = align.inverse_maps(ldm).unbind(1)
+    half = (s - 1) / 2
+    theta = torch.stack([
+        torch.stack([s * a11 / w, s * a12 / w,
+                     (2 * (half * (a11 + a12) + b1) + 1) / w - 1], 1),
+        torch.stack([s * a21 / h, s * a22 / h,
+                     (2 * (half * (a21 + a22) + b2) + 1) / h - 1], 1),
+    ], 1).float()
+
+    def run():
+        grid = F.affine_grid(theta, (n, 3, s, s), align_corners=False)
+        v = F.grid_sample(frames[idx].permute(0, 3, 1, 2).float(), grid,
+                          mode="bilinear", padding_mode="zeros",
+                          align_corners=False)
+        return (v - 127.5) / 127.5
+    return run
+
+
+def phase_align(dev, rate):
+    """The alignment kernel at the crowd's flush against its plain
+    version on the CPU, bit for bit (both in float64, the kernel built
+    without fused multiply-adds), and against the plain version on the
+    card and the library's warp, with the times of all three and the
+    kernel's bound."""
+    n, b, h, w = ALIGN_CASE
+    frames, idx, ldm = align_case(dev, n, b, h, w)
+    got = align.align_warp(frames, idx, ldm)
+    want = align.align_plain(frames[idx].cpu(), torch.arange(n),
+                             ldm.cpu())
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"align_warp differs from the plain version "
+                             f"by {float((got.cpu() - want).abs().max())}")
+    library = library_align(frames, idx, ldm)
+    library_err = float((library() - got).abs().max())
+    if library_err > 1e-2:
+        raise AssertionError(f"the library's warp differs from align_warp "
+                             f"by {library_err}: not the same map")
+    plain_card_err = float(
+        (align.align_plain(frames, idx, ldm) - got).abs().max())
+    degenerate = int(align.degenerate(ldm.cpu().numpy()).sum())
+    row = {
+        "shape": [n, b, h, w], "equal": True, "max_abs_err": 0.0,
+        "degenerate_sets": degenerate,
+        "plain_card_max_abs_err": plain_card_err,
+        "library_max_abs_err": library_err,
+        "ms": time_ms(lambda: align.align_warp(frames, idx, ldm)),
+        "plain_ms": time_ms(lambda: align.align_plain(frames, idx, ldm),
+                            reps=3, trials=3),
+        "library_ms": time_ms(library, reps=3, trials=3),
+        "bound_ms": n * ALIGN_CROP_BYTES / rate * 1e3,
+    }
+    emit({"phase": "align", **row})
+    return row
+
+
+def phase_arcface(dev, out_root, film):
+    """The extract stage with the ArcFace bank on phase 3's film
+    (``--embedder arcface-r100``: IResNet-100 at its published widths,
+    random from seed 0): the crops of each flush aligned in one
+    align_warp launch, an aligned crop for every embedded face, unit
+    512-wide vectors."""
+    cfg = ExtractConfig(face_threshold=0.9, save_images=False, resume=False)
+    detector = probe_detector(dev, film.height, film.width, cfg)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    run_extract(film, cfg, out_root, detector=detector, device=dev,
+                embedder=ARCFACE_NAME)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches.snapshot()
+
+    n_frames = film.n_frames
+    n_blocks = -(-n_frames // cfg.block_frames)
+    data = os.path.join(out_root, "777-data")
+    rng = f"0-{n_frames}"
+    n_feat = check_features(
+        os.path.join(data, "features", f"features_777_{rng}.jsonl"),
+        {ARCFACE_NAME: 512})
+    with open(os.path.join(data, "run_report.json")) as f:
+        report = json.load(f)[f"extract_{rng}"]
+    counters = report["counters"]
+    if n_feat == 0 or counters["aligned_crops"] != counters["embed_crops"]:
+        raise AssertionError(f"{n_feat} records, {counters['aligned_crops']}"
+                             f" aligned crops of {counters['embed_crops']}")
+    want = path_launches(n_blocks, counters["embed_dispatches"])
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    result = {"phase": "arcface", "frames": n_frames, "blocks": n_blocks,
+              "wall_seconds": wall, "feature_records": n_feat,
+              "launches": launches, "run_report_counters": counters}
+    emit(result)
     return result
 
 
@@ -2121,12 +2264,15 @@ def main() -> int:
     rows = timed_phase("kernels", phase_kernels, dev, rate)
     timed_phase("kernels_skewed", phase_skewed, dev, rate)
     rgb_rows = timed_phase("kernels_rgb", phase_rgb, dev, rate)
+    align_row = timed_phase("align", phase_align, dev, rate)
     with tempfile.TemporaryDirectory() as tmp:
         film = smoke_film()
         tracker = timed_phase("tracker", phase_tracker, dev, film, card,
                               rate)
         main_path = timed_phase("main_path", phase_main_path, dev,
                                 os.path.join(tmp, "main"), film)
+        arcface = timed_phase("arcface", phase_arcface, dev,
+                              os.path.join(tmp, "arcface"), film)
         torch.cuda.empty_cache()
         device_step = timed_phase("device_step", phase_device_step, dev,
                                   card)
@@ -2212,6 +2358,19 @@ def main() -> int:
         "host_call_ms": tracker["host_call_ms"],
         "crowd48_T64_ms": tracker["crowd48_T64"]["ms"],
         "shape": [tracker["block_frames"], tracker["detections"], 4]})
+    # the JAX package has no aligned crop: align_warp replaces nothing;
+    # every FaceNet path counts 0 launches of it (path_launches)
+    kernels.append({
+        "name": "align_warp", "route": "cuda", "source": ALIGN_SOURCE,
+        "replaces": None, "launches": arcface["launches"]["align_warp"],
+        "facenet_launches": main_path["launches"]["align_warp"],
+        "max_abs_err": align_row["max_abs_err"], "ms": align_row["ms"],
+        "plain_ms": align_row["plain_ms"],
+        "bound_ms": align_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": align_row["library_ms"],
+        "plain_card_max_abs_err": align_row["plain_card_max_abs_err"],
+        "library_max_abs_err": align_row["library_max_abs_err"],
+        "shape": align_row["shape"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,6 +33,11 @@ FACENET_DIMS = {
 }
 # Embedding used by cluster/classify stages (cluster.py:17, classify_knn.py:13)
 EMB_NAME = "20170512-110547"
+# The embedder families extract runs (``--embedder``): the four FaceNets,
+# or insightface's ArcFace IResNet-100 alone, whose 512-d vectors are
+# then the features' only embedding and what cluster and classify read.
+ARCFACE_NAME = "arcface-r100"
+EMBEDDERS = ("facenet", ARCFACE_NAME)
 
 FACE_IMAGE_SIZE = 160          # face crops resolution (extract.py:27)
 SAVE_FACE_PADDING = 0.10       # padding for saved crops (extract.py:28)
@@ -145,3 +150,16 @@ class PipelineConfig:
     merge: MergeConfig = dataclasses.field(default_factory=MergeConfig)
     cluster: ClusterConfig = dataclasses.field(default_factory=ClusterConfig)
     classify: ClassifyConfig = dataclasses.field(default_factory=ClassifyConfig)
+
+    def for_embedder(self, embedder: str) -> "PipelineConfig":
+        """This config with cluster and classify reading the embedding
+        that extract writes with ``embedder`` (one of ``EMBEDDERS``)."""
+        if embedder not in EMBEDDERS:
+            raise ValueError(f"unknown embedder {embedder!r}; one of "
+                             f"{EMBEDDERS}")
+        if embedder == "facenet":
+            return self
+        return dataclasses.replace(
+            self, cluster=dataclasses.replace(self.cluster,
+                                              emb_name=embedder),
+            classify=dataclasses.replace(self.classify, emb_name=embedder))

@@ -31,10 +31,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-# flags of one source only: the tracker rounds every float expression
-# as its plain version's separate tensor operations do (no contraction
-# of a multiply and an add into one fma)
-EXTRA_FLAGS = {"tracker": ("-fmad=false",)}
+# flags of one source only: the tracker and the alignment round every
+# float expression as their plain versions' separate tensor operations
+# do (no contraction of a multiply and an add into one fma)
+EXTRA_FLAGS = {"tracker": ("-fmad=false",), "align": ("-fmad=false",)}
 # library name -> (source name, its further flags)
 VARIANTS = {"tracker_clocks": ("tracker", ("-DFR_TRACKER_CLOCKS",))}
 

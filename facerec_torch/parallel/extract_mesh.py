@@ -82,7 +82,7 @@ def _to_bytes(obj) -> Optional[bytes]:
 
 def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
                  n, detector_bytes, embedder_bytes, detector_weights,
-                 facenet_weights):
+                 facenet_weights, embedder, arcface_weights):
     """Span ``spans[rank]`` on ``device``: build (or load) the detector
     and bank there, run the serial loop; returns (counters, blocks,
     its spans' totals, the kernels' launches)."""
@@ -93,7 +93,8 @@ def _span_worker(rank, device, film, cfg, dirs, movie_id, info, spans,
     detector = (load(detector_bytes) if detector_bytes is not None
                 else build_detector(cfg, d_h, d_w, detector_weights, device))
     embedders = (load(embedder_bytes) if embedder_bytes is not None
-                 else build_embedders(facenet_weights, device))
+                 else build_embedders(facenet_weights, device, embedder,
+                                      arcface_weights))
     run = run_span(film, info, cfg, dirs, movie_id, beg, end, stop, detector,
                    embedders, device, spans=n)
     return (run.counters, run.blocks, run.spans.totals(),
@@ -111,6 +112,8 @@ def run_extract_mesh(
     aspect_csv: str = "aspect_ratios.csv",
     detector_weights: Optional[str] = None,
     facenet_weights: Optional[str] = None,
+    embedder: str = "facenet",
+    arcface_weights: Optional[str] = None,
 ) -> List[ExtractCounters]:
     """Extract the whole film as n simultaneous spans, one process per
     device, and write the per-span shard files a serial ``--n-shards
@@ -121,7 +124,7 @@ def run_extract_mesh(
     visible cards.  A given ``detector`` and ``embedders`` are sent to
     every worker by value and loaded onto its device (test stubs must
     be importable classes); else each worker builds them from the
-    weight paths.  Returns the counters of the spans that ran ([] when
+    weight paths (the bank: ``embedder``'s).  Returns the counters of the spans that ran ([] when
     every span was done already); a failed span fails the run, and the
     other spans keep their checkpoints and ``.done`` markers."""
     devs = mesh_devices(mesh_size, devices=devices)
@@ -163,7 +166,7 @@ def run_extract_mesh(
         _span_worker, [devs[i] for i in active], group=False,
         args=(film, span_cfg, dirs, movie_id, info,
               [spans[i] for i in active], n, det_bytes, emb_bytes,
-              detector_weights, facenet_weights))
+              detector_weights, facenet_weights, embedder, arcface_weights))
 
     counters = [r[0] for r in results]
     for _, _, _, launches in results:

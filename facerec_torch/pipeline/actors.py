@@ -147,20 +147,25 @@ def fetch_actor_image_urls(actor, film,
 
 class FaceEmbedderForImages:
     """Single-image detect+embed on one device: exactly-one-face gate,
-    tight box, four-checkpoint embeddings.  The detector runs at
-    (512, 512) with 8 detections, threshold 0.95 and min face 20."""
+    tight box, the bank's embeddings (``embedder``'s: the four
+    checkpoints on the box crop, or ArcFace on the crop aligned to the
+    face's landmarks).  The detector runs at (512, 512) with 8
+    detections, threshold 0.95 and min face 20."""
 
     def __init__(self, detector=None, embedders=None,
                  detector_weights: Optional[str] = None,
                  facenet_weights: Optional[str] = None, device=None,
                  decode: Callable[[bytes], Optional[np.ndarray]] =
-                 default_decode):
+                 default_decode, embedder: str = "facenet",
+                 arcface_weights: Optional[str] = None):
         self.device = resolve_device(device)
         use_full_float32()
         self._detector = detector
         self._embedders = embedders
         self._detector_weights = detector_weights
         self._facenet_weights = facenet_weights
+        self._embedder = embedder
+        self._arcface_weights = arcface_weights
         self.decode = decode
 
     @property
@@ -185,8 +190,9 @@ class FaceEmbedderForImages:
         if self._embedders is None:
             from facerec_torch.pipeline.extract import build_embedders
 
-            self._embedders = build_embedders(self._facenet_weights,
-                                              self.device)
+            self._embedders = build_embedders(
+                self._facenet_weights, self.device, self._embedder,
+                self._arcface_weights)
         return self._embedders
 
     @torch.inference_mode()
@@ -206,12 +212,19 @@ class FaceEmbedderForImages:
 
         tight = round_clip_box(box, w, h)
         crop_box = embed_crop_box(tight, w, h)
-        crops = crop_resize(
-            frames, torch.zeros(1, dtype=torch.int64, device=self.device),
-            torch.from_numpy(crop_box[None]).to(self.device),
-            FACE_IMAGE_SIZE)
-        embeddings = {name: vecs[0].tolist()
-                      for name, vecs in self.embedders(crops).items()}
+        bank = self.embedders
+        if getattr(bank, "supports_deferred", False):
+            ldm = det.landmarks[0].cpu().numpy()[valid.argmax()]
+            vecs = bank.unpack(bank.dispatch_crop_embed(
+                frames, np.zeros(1, np.int64), crop_box[None],
+                ldm[None]).cpu().numpy(), 1)
+        else:
+            vecs = bank(crop_resize(
+                frames, torch.zeros(1, dtype=torch.int64,
+                                    device=self.device),
+                torch.from_numpy(crop_box[None]).to(self.device),
+                FACE_IMAGE_SIZE))
+        embeddings = {name: v[0].tolist() for name, v in vecs.items()}
         return {"box": tight, "embeddings": embeddings}
 
 
@@ -290,6 +303,9 @@ def main(argv=None):
                              "checkpoints (see extract --help)")
     parser.add_argument("--detector-weights", type=str, default=None,
                         help="single-file Flax .npz detector checkpoint")
+    from facerec_torch.pipeline.extract import add_embedder_args
+
+    add_embedder_args(parser)
     args = parser.parse_args(argv)
 
     actors = fetch_actor_list(args.film)
@@ -300,7 +316,8 @@ def main(argv=None):
     zipf = os.path.join(args.actors_dir, "actor-images.zip")
     embed = FaceEmbedderForImages(
         detector_weights=args.detector_weights,
-        facenet_weights=args.facenet_weights, device=args.device)
+        facenet_weights=args.facenet_weights, device=args.device,
+        embedder=args.embedder, arcface_weights=args.arcface_weights)
     faces = []
     for a in actors:
         faces.extend(prepare_one_actor(a, args.n_faces, zipf, embed))

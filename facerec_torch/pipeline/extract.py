@@ -13,7 +13,9 @@ streams through the device in frame blocks:
   host    every ``fetch_every_blocks`` blocks: one copy of the group's
           payloads and its deferred embeddings (runtime/transfer.py)
   host    trajectory assembly + the deferred face buffer
-  device  crop + resize + all four FaceNet checkpoints, once per group
+  device  each embedder's crop (a resized box for the FaceNets, the
+          five-point alignment for ArcFace) and the embedders, once per
+          group
   host    trajectory/feature/scene-change writers
 
 Cross-block carry is the scene state and the tracker table, both on the
@@ -26,6 +28,7 @@ runs N spans at once, one process per device
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import os
@@ -36,14 +39,17 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from facerec_torch.config import (FACENET_DIMS, FACENET_MODELS,
-                                  FACE_IMAGE_SIZE, ExtractConfig)
+from facerec_torch.config import (ARCFACE_NAME, EMBEDDERS, FACENET_DIMS,
+                                  FACENET_MODELS, FACE_IMAGE_SIZE,
+                                  ExtractConfig)
 from facerec_torch.contract import MovieDirs, records
 from facerec_torch.contract.featjson import FeatureWriter
 from facerec_torch.contract.naming import box_tag, movie_id_from_filename, \
     shard_file_name
 from facerec_torch.models.facenet import FaceNetEmbedder, PooledEmbedders
+from facerec_torch.models.iresnet import ArcFaceEmbedder
 from facerec_torch.models.load import load_facenet_embedders, warn_random_init
+from facerec_torch.ops import align as align_ops
 from facerec_torch.ops import scene as scene_ops
 from facerec_torch.ops import yuv as yuv_ops
 from facerec_torch.ops.boxes import round_clip_box
@@ -134,7 +140,12 @@ def block_step(detector, tracker_cfg: TrackerConfig, frames: torch.Tensor,
 
 
 class EmbedderBank:
-    """All FaceNet checkpoints over one crop batch.
+    """The embedders over one batch of saved faces, on the crop they
+    take: the FaceNet checkpoints on the 160-px crop of the face's box
+    (:func:`crops_of`), or the ArcFace networks on the 112-px crop
+    aligned to its five landmarks (:mod:`facerec_torch.ops.align`).  A
+    bank holds one kind (``takes_landmarks``, from its embedders), so it
+    computes one crop.
 
     Real banks support deferred fetches: :meth:`dispatch_crop_embed`
     leaves the embeddings on the device as one uint8 buffer, which the
@@ -143,13 +154,27 @@ class EmbedderBank:
     only (host embeddings at once)."""
 
     supports_deferred = False
+    takes_landmarks = False
+    # the spans and counters the bank adds to the extract report
+    span_names: tuple = ()
+    counter_names: tuple = ()
 
-    def __init__(self, embedders: Dict[str, FaceNetEmbedder]):
+    def __init__(self, embedders: Dict[str, object]):
         self.embedders = embedders
-        self.pooled = PooledEmbedders(list(embedders.values()))
-        self.names = list(self.pooled.names)
+        kinds = {bool(getattr(e, "takes_landmarks", False))
+                 for e in embedders.values()}
+        if len(kinds) > 1:
+            raise ValueError("a bank holds FaceNets on box crops or "
+                             "ArcFace networks on aligned crops, not both")
+        self.takes_landmarks = True in kinds
+        self.pooled = (None if self.takes_landmarks
+                       else PooledEmbedders(list(embedders.values())))
+        self.names = [e.name for e in embedders.values()]
         self.dims = [int(e.embedding_dim) for e in embedders.values()]
         self.total_dim = sum(self.dims)
+        if self.takes_landmarks:
+            self.span_names = ("flush_align",)
+            self.counter_names = ("aligned_crops", "align_degenerate")
         self.supports_deferred = True
 
     @classmethod
@@ -174,19 +199,56 @@ class EmbedderBank:
                                           dtype=dtype))
 
     def dispatch_packed(self, crops: torch.Tensor) -> torch.Tensor:
-        """Embed a crop batch with every checkpoint, ``EMBED_BATCH``
-        crops at a time, leaving the (N·total_dim·4,) uint8 buffer of
-        float32 embeddings on the device."""
+        """Embed a crop batch with every embedder, ``EMBED_BATCH`` crops
+        at a time, leaving the (N·total_dim·4,) uint8 buffer of float32
+        embeddings on the device."""
         return pack_tree(torch.cat([
-            torch.cat(self.pooled(chunk), dim=-1).float()
+            torch.cat(self._embed(chunk), dim=-1).float()
             for chunk in crops.split(EMBED_BATCH)]))
 
+    def _embed(self, crops: torch.Tensor):
+        if self.pooled is not None:
+            return self.pooled(crops)
+        return tuple(e(crops) for e in self.embedders.values())
+
     def dispatch_crop_embed(self, stack: torch.Tensor, frame_idx: np.ndarray,
-                            crop_boxes: np.ndarray) -> torch.Tensor:
-        """Crop + resize on the stack's device, then
-        :meth:`dispatch_packed`; ``frame_idx`` and ``crop_boxes`` are
-        host arrays."""
-        return self.dispatch_packed(crops_of(stack, frame_idx, crop_boxes))
+                            crop_boxes: np.ndarray,
+                            landmarks: Optional[np.ndarray] = None,
+                            spans: Optional[Spans] = None) -> torch.Tensor:
+        """The bank's crops on the stack's device, then
+        :meth:`dispatch_packed`: the box crops of ``crop_boxes``, or the
+        crops aligned to ``landmarks``, the real faces' (5, 2) points,
+        repeated from the last to one a slot of ``frame_idx`` as the
+        boxes are padded.  All three are host arrays.  The alignment's
+        host work (stacking, copy, launch) is the ``flush_align`` span
+        of ``spans``, which count its real and degenerate sets."""
+        if not self.takes_landmarks:
+            return self.dispatch_packed(crops_of(stack, frame_idx,
+                                                 crop_boxes))
+        if landmarks is None:
+            raise ValueError("an ArcFace bank needs the faces' landmarks")
+        with (spans.span("flush_align") if spans is not None
+              else contextlib.nullcontext()):
+            frame_idx = np.asarray(frame_idx, np.int64)
+            n = len(frame_idx)
+            if n and not (0 <= frame_idx.min() and frame_idx.max()
+                          < len(stack)):
+                raise IndexError(f"frame indices outside the stack of "
+                                 f"{len(stack)} frames")
+            ldm = np.asarray(landmarks, np.float32).reshape(-1, 5, 2)
+            if not 0 < len(ldm) <= n:
+                raise ValueError(f"{len(ldm)} landmark sets for {n} slots")
+            if spans is not None:
+                spans.count("aligned_crops", len(ldm))
+                spans.count("align_degenerate",
+                            int(align_ops.degenerate(ldm).sum()))
+            ldm = np.concatenate(
+                [ldm, np.repeat(ldm[-1:], n - len(ldm), 0)])
+            dev = stack.device
+            aligned = align_ops.align(
+                stack, torch.from_numpy(frame_idx).to(dev),
+                torch.from_numpy(ldm).to(dev))
+        return self.dispatch_packed(aligned)
 
     def unpack(self, buf: np.ndarray, n: int) -> Dict[str, np.ndarray]:
         """Fetched bytes → {checkpoint: (n, dim) float32}."""
@@ -195,8 +257,8 @@ class EmbedderBank:
         return dict(zip(self.names, split))
 
     def __call__(self, crops: torch.Tensor) -> Dict[str, np.ndarray]:
-        """(N, 160, 160, 3) crops → {checkpoint: (N, dim) float32}, in
-        one pull."""
+        """The bank's crops → {checkpoint: (N, dim) float32}, in one
+        pull."""
         return self.unpack(self.dispatch_packed(crops).cpu().numpy(),
                            int(crops.shape[0]))
 
@@ -401,8 +463,13 @@ class ShardConsumer:
 
         with self.spans.span("flush_embed"):
             if getattr(self.embedders, "supports_deferred", False):
+                # a bank that aligns takes the real faces' landmarks
+                extra = ({"landmarks": [p.landmarks for p in ready],
+                          "spans": self.spans}
+                         if getattr(self.embedders, "takes_landmarks", False)
+                         else {})
                 buf = self.embedders.dispatch_crop_embed(
-                    dev_stack, frame_idx, crop_boxes)
+                    dev_stack, frame_idx, crop_boxes, **extra)
                 pe = PendingEmbed(ready, tight_boxes, dev_packed=buf,
                                   nbytes=int(buf.shape[0]))
             else:
@@ -551,8 +618,25 @@ def build_detector(cfg: ExtractConfig, d_h: int, d_w: int,
                                   device=device, **kwargs)
 
 
-def build_embedders(facenet_weights: Optional[str],
-                    device: torch.device) -> EmbedderBank:
+def build_embedders(facenet_weights: Optional[str], device: torch.device,
+                    embedder: str = "facenet",
+                    arcface_weights: Optional[str] = None) -> EmbedderBank:
+    """The bank of one of ``EMBEDDERS``: the four FaceNets from
+    ``facenet_weights``, or ArcFace IResNet-100 from a published
+    ``backbone.pth`` state dict; random-initialised, with a warning,
+    where the weights are not given."""
+    if embedder == ARCFACE_NAME:
+        sd = None
+        if arcface_weights is not None:
+            sd = torch.load(arcface_weights, map_location="cpu",
+                            weights_only=True)
+        else:
+            warn_random_init("The ArcFace embedder", "--arcface-weights")
+        return EmbedderBank({ARCFACE_NAME: ArcFaceEmbedder(
+            ARCFACE_NAME, device=device, state_dict=sd, seed=0)})
+    if embedder != "facenet":
+        raise ValueError(f"unknown embedder {embedder!r}; one of "
+                         f"{EMBEDDERS}")
     if facenet_weights is not None:
         return EmbedderBank.from_weights(facenet_weights, device)
     warn_random_init("The FaceNet embedder bank", "--facenet-weights")
@@ -660,7 +744,8 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
                                       budget_bytes=(2 << 30) // spans),
         pixel_format="i420" if wire_fmt == "yuv420-delta" else "rgb")
     jpeg_writer = make_jpeg_writer(cfg)
-    sp = Spans("extract", SPANS, COUNTERS)
+    sp = Spans("extract", SPANS + getattr(embedders, "span_names", ()),
+               COUNTERS + getattr(embedders, "counter_names", ()))
     consumer = ShardConsumer(dirs, movie_id, cfg, beg, end, d_w, d_h,
                              embedders, device, sp, jpeg_writer,
                              resume_state=resume_state)
@@ -860,6 +945,8 @@ def run_extract(
     detector_weights: Optional[str] = None,
     facenet_weights: Optional[str] = None,
     device=None,
+    embedder: str = "facenet",
+    arcface_weights: Optional[str] = None,
 ) -> ExtractCounters:
     """Process one shard of a film (the whole film when n_shards=1).
 
@@ -869,7 +956,8 @@ def run_extract(
     cannot decode video.  ``device`` is resolved by
     :func:`~facerec_torch.runtime.device.resolve_device`: the card, or
     the CPU only when asked for.  A given ``detector`` and
-    ``embedders`` must already live on that device.
+    ``embedders`` must already live on that device; else the bank is
+    ``embedder``'s (:func:`build_embedders`).
     """
     if not 0 <= cfg.shard_i < cfg.n_shards:
         raise ValueError("Bad shard index.")
@@ -909,7 +997,8 @@ def run_extract(
     if detector is None:
         detector = build_detector(cfg, d_h, d_w, detector_weights, device)
     if embedders is None:
-        embedders = build_embedders(facenet_weights, device)
+        embedders = build_embedders(facenet_weights, device, embedder,
+                                    arcface_weights)
 
     run = run_span(file, info, cfg, dirs, movie_id, beg, end, end_overlap,
                    detector, embedders, device)
@@ -931,6 +1020,21 @@ def run_extract(
         print(f"WARNING: {counters.overflow} detections dropped at "
               f"track-capacity limit.")
     return counters
+
+
+def add_embedder_args(parser: argparse.ArgumentParser) -> None:
+    """``--embedder`` and ``--arcface-weights``, for the CLIs that
+    build a bank."""
+    parser.add_argument("--embedder", type=str, default="facenet",
+                        choices=list(EMBEDDERS),
+                        help="the four FaceNets on box crops, or ArcFace "
+                             "IResNet-100 on five-point aligned crops "
+                             "(then the only embedding, which cluster "
+                             "and classify read)")
+    parser.add_argument("--arcface-weights", type=str, default=None,
+                        help="insightface backbone.pth (a state dict) of "
+                             "--embedder arcface-r100; random init + "
+                             "warning if omitted")
 
 
 def check_wire_format(cfg: ExtractConfig) -> None:
@@ -1002,6 +1106,7 @@ def main(argv=None):
                              "(<name>.pt, <name>.h5, <name>.npz or "
                              "<name>/model.h5); random init + warning "
                              "if omitted")
+    add_embedder_args(parser)
     parser.add_argument("file")
     args = parser.parse_args(argv)
 
@@ -1026,12 +1131,15 @@ def main(argv=None):
         run_extract_mesh(args.file, cfg, args.out_path.rstrip("/"),
                          devices=mesh_devices(args.mesh, args.device),
                          detector_weights=args.detector_weights,
-                         facenet_weights=args.facenet_weights)
+                         facenet_weights=args.facenet_weights,
+                         embedder=args.embedder,
+                         arcface_weights=args.arcface_weights)
     else:
         run_extract(args.file, cfg, args.out_path.rstrip("/"),
                     detector_weights=args.detector_weights,
                     facenet_weights=args.facenet_weights,
-                    device=args.device)
+                    device=args.device, embedder=args.embedder,
+                    arcface_weights=args.arcface_weights)
     minutes, seconds = divmod(time.time() - start, 60)
     print(f"Completed in {int(minutes)} minutes, {int(seconds)} seconds.")
 

@@ -25,7 +25,8 @@ from facerec_torch.config import PipelineConfig
 from facerec_torch.contract.naming import movie_id_from_filename
 from facerec_torch.pipeline import classify as classify_mod
 from facerec_torch.pipeline.cluster import run_cluster
-from facerec_torch.pipeline.extract import EmbedderBank, run_extract
+from facerec_torch.pipeline.extract import (EmbedderBank, add_embedder_args,
+                                            run_extract)
 from facerec_torch.pipeline.merge import run_merge
 from facerec_torch.runtime.device import resolve_device
 from facerec_torch.runtime.metrics import StageReport
@@ -50,11 +51,14 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
                  facenet_weights: Optional[str] = None,
                  device=None,
                  detector: Optional[Callable] = None,
-                 embedders: Optional[EmbedderBank] = None) -> List[Stage]:
+                 embedders: Optional[EmbedderBank] = None,
+                 embedder: str = "facenet",
+                 arcface_weights: Optional[str] = None) -> List[Stage]:
     """The stage list for one film on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``detector`` and ``embedders`` replace the
     ones built from the weights (they must live on ``device``; a mesh
-    sends them to its workers).  ``mesh`` > 1 runs extract on the first
+    sends them to its workers).  ``embedder`` names the bank's family
+    (``config.EMBEDDERS``): cluster and classify read its embedding.  ``mesh`` > 1 runs extract on the first
     ``mesh`` cards, or in ``mesh`` CPU processes with ``device="cpu"``;
     too few cards raise here."""
     mesh_devs = None
@@ -68,6 +72,7 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
         raise ValueError("--shard-procs needs a film file: an in-memory "
                          "clip cannot be handed to a subprocess")
     dev = resolve_device(device)
+    cfg = cfg.for_embedder(embedder)
     filmfile = film.path if in_memory else film
     movie_id = movie_id_from_filename(filmfile)
     data_dir = os.path.join(out_path, f"{movie_id}-data")
@@ -93,6 +98,9 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
                 weight_args += ["--detector-weights", detector_weights]
             if facenet_weights is not None:
                 weight_args += ["--facenet-weights", facenet_weights]
+            weight_args += ["--embedder", embedder]
+            if arcface_weights is not None:
+                weight_args += ["--arcface-weights", arcface_weights]
             for i in range(shard_procs):
                 cmd = [sys.executable, "-m", "facerec_torch.pipeline.extract",
                        "--device", str(dev),
@@ -112,11 +120,15 @@ def build_stages(film, out_path: str, cfg: PipelineConfig,
                                     devices=mesh_devs, detector=detector,
                                     embedders=embedders,
                                     detector_weights=detector_weights,
-                                    facenet_weights=facenet_weights)
+                                    facenet_weights=facenet_weights,
+                                    embedder=embedder,
+                                    arcface_weights=arcface_weights)
         return run_extract(film, cfg.extract, out_path, detector=detector,
                            embedders=embedders,
                            detector_weights=detector_weights,
-                           facenet_weights=facenet_weights, device=dev)
+                           facenet_weights=facenet_weights, device=dev,
+                           embedder=embedder,
+                           arcface_weights=arcface_weights)
 
     def merge():
         return run_merge(data_dir, movie_id, cfg.merge)
@@ -206,6 +218,7 @@ def main(argv=None) -> int:
                              "checkpoints (see extract --help)")
     parser.add_argument("--detector-weights", type=str, default=None,
                         help="single-file Flax .npz detector checkpoint")
+    add_embedder_args(parser)
     parser.add_argument("--fetch-every-blocks", type=int, default=None,
                         help="extract transfer batching (see extract "
                              "--help)")
@@ -235,7 +248,8 @@ def main(argv=None) -> int:
                           mesh=args.mesh,
                           detector_weights=args.detector_weights,
                           facenet_weights=args.facenet_weights,
-                          device=args.device)
+                          device=args.device, embedder=args.embedder,
+                          arcface_weights=args.arcface_weights)
     movie_id = movie_id_from_filename(args.filmfile)
     ok = run_pipeline(stages, verbose=args.verbose,
                       data_dir=os.path.join(args.out_path,

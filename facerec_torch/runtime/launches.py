@@ -2,17 +2,18 @@
 
 Each kernel wrapper counts its launches in its own module
 (``ops/equalize.py``: one key per entry point; ``track/tracker.py``:
-``tracker``).  ``chip_smoke.py`` zeroes them before it drives a path
-and reads them after; a mesh adds its workers' counts to its own.
+``tracker``; ``ops/align.py``: ``align_warp``).  ``chip_smoke.py``
+zeroes them before it drives a path and reads them after; a mesh adds
+its workers' counts to its own.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
-from facerec_torch.ops import equalize
+from facerec_torch.ops import align, equalize
 from facerec_torch.track import tracker
 
-_COUNTERS = (equalize.launches, tracker.launches)
+_COUNTERS = (equalize.launches, tracker.launches, align.launches)
 
 
 def snapshot() -> Dict[str, int]:

@@ -17,9 +17,12 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``dispatch_tracker``, ``dispatch_pack`` under ``dispatch``;
   ``consume_unpack``, ``consume_assemble``, ``consume_plan``,
   ``consume_write`` under ``consume``; ``flush_embed`` under
-  ``flush_dispatch``; and, under ``FACEREC_PHASE_LOG`` only,
-  ``fetch_compute_wait`` under ``fetch``.  A parent's self time is its
-  seconds less its children's.
+  ``flush_dispatch``; with a bank that aligns its crops (ArcFace),
+  ``flush_align`` under ``flush_embed``: the host's part of the
+  alignment in the bank (the landmarks' stacking and padding, their
+  copy to the device and the kernel's launch); and, under ``FACEREC_PHASE_LOG``
+  only, ``fetch_compute_wait`` under ``fetch``.  A parent's self time
+  is its seconds less its children's.
 - counters: ``embed_crops`` and ``embed_slots`` (real crops and the
   padded batch slots embedded), ``embed_dispatches``, ``detections``
   (valid detections of the blocks consumed), ``fetch_bytes`` and
@@ -27,7 +30,10 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``upload_bytes`` (host→device bytes of the block uploads),
   ``feature_records`` (lines written to the features file),
   ``feature_records_native`` (of them, those the native writer wrote,
-  ``contract/featjson.py``) and ``feature_bytes`` (their bytes).
+  ``contract/featjson.py``) and ``feature_bytes`` (their bytes); with
+  a bank that aligns, ``aligned_crops`` (real crops aligned) and
+  ``align_degenerate`` (of them, those whose landmarks have no
+  similarity, ``ops/align.py``).
 
 ``FACEREC_PHASE_LOG`` prints its ``[phase]`` lines from the spans.
 """

@@ -299,6 +299,37 @@ def test_device_step_replay_equals_eager(card):
     got = step(*args)
     assert step.replays == 1
     assert step.captured_launches == {"hist256": 0, "hist256_rgb": 1,
-                                      "cum_lookup": 1, "tracker": 1}
+                                      "cum_lookup": 1, "tracker": 1,
+                                      "align_warp": 0}
     assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
     assert torch.equal(got[2].uid, want[2].uid)
+
+
+@pytest.mark.parametrize("n,b,h,w", [(64, 8, 576, 768), (7, 3, 41, 130)])
+def test_align_warp_equals_plain(card, n, b, h, w):
+    """The alignment kernel against its plain version on the CPU, bit for
+    bit (the kernel is built without fused multiply-adds): faces of 10 to
+    60 px across the frame and off its edges, turned and jittered, and a
+    degenerate set."""
+    from facerec_torch.ops import align
+
+    rng = np.random.default_rng(n)
+    frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                           dtype=np.uint8))
+    th = rng.uniform(-0.6, 0.6, n)
+    rot = np.stack([np.cos(th), -np.sin(th), np.sin(th), np.cos(th)],
+                   1).reshape(n, 2, 2)
+    tpl = np.asarray(align.TEMPLATE) - 56.0
+    ldm = np.float32(np.einsum("pj,nij->npi", tpl, rot)
+                     * rng.uniform(0.15, 0.6, (n, 1, 1))
+                     + rng.uniform([-10, -10], [w + 10, h + 10], (n, 1, 2))
+                     + rng.normal(0, 1.5, (n, 5, 2)))
+    ldm[0] = ldm[0, :1]                           # no spread
+    idx = torch.from_numpy(rng.integers(0, b, n))
+    before = align.launches["align_warp"]
+    got = align.align_warp(frames.to(card), idx.to(card),
+                           torch.from_numpy(ldm).to(card))
+    torch.cuda.synchronize()
+    assert align.launches["align_warp"] == before + 1
+    want = align.align_plain(frames, idx, torch.from_numpy(ldm))
+    assert torch.equal(got.cpu(), want)

@@ -270,3 +270,30 @@ def test_profiler_starting_and_stopping_inside_spans(clip, tmp_path):
                     open(os.path.join(want, f"{MOVIE}-data", sub,
                                       fname), "rb") as g:
                 assert f.read() == g.read(), sub
+
+
+def test_align_span_nests_under_flush_embed(clip, tmp_path):
+    """An ArcFace bank's alignment is the span ``flush_align`` under
+    ``flush_embed``, host range and all, and it aligns every real
+    crop."""
+    from facerec_torch.config import ARCFACE_NAME
+    from facerec_torch.models.iresnet import ArcFaceEmbedder
+
+    bank = ex.EmbedderBank({ARCFACE_NAME: ArcFaceEmbedder(
+        ARCFACE_NAME, "cpu", seed=1, layers=(1, 1, 1, 1))})
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        run, _ = run_loop(clip, str(tmp_path), bank)
+    sp = run.spans
+    assert sp.parent["flush_align"] == "flush_embed"
+    assert 0 < sp.seconds["flush_align"] <= sp.seconds["flush_embed"]
+    c = sp.counters
+    assert c["aligned_crops"] == c["embed_crops"] == \
+        run.counters.saved_boxes > 0
+    assert c["align_degenerate"] == 0
+    ranges = host_ranges(prof)
+    assert {"flush_align", "flush_embed"} <= {r[0] for r in ranges}
+    for name, a, b, _ in ranges:
+        if name == "flush_align":
+            assert any(p == "flush_embed" and pa <= a and b <= pb
+                       for p, pa, pb, _ in ranges)
