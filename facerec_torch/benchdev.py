@@ -23,6 +23,7 @@ from facerec_torch.models.detector import DetectorHarness
 from facerec_torch.ops import scene as scene_ops
 from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline.extract import EmbedderBank
+from facerec_torch.runtime import graphs
 from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
@@ -112,23 +113,9 @@ class DeviceStep:
         return c["fingerprint"], c["scene_state"], c["tracker_state"]
 
     def capture(self, args, warmup: int = 2) -> None:
-        """Warm up on a side stream (kernel builds, uploads made once,
-        cuDNN and cuBLAS handles), run one step with synchronising calls
-        made errors (a host read would break the graph), then capture
-        one step over ``args`` as the static inputs."""
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                self.eager(*args)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                self.eager(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        """Warm up (:func:`facerec_torch.runtime.graphs.warm_up`), then
+        capture one step over ``args`` as the static inputs."""
+        graphs.warm_up(lambda: self.eager(*args), self.device, warmup)
         self._static_in = _leaves(args)
         before = kernel_launches.snapshot()
         graph = torch.cuda.CUDAGraph()

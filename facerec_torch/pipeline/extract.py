@@ -56,6 +56,7 @@ from facerec_torch.ops.boxes import round_clip_box
 from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline import faces as faces_mod
 from facerec_torch.runtime import checkpoint as ckpt
+from facerec_torch.runtime import graphs
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 from facerec_torch.runtime.metrics import Spans, StageReport
 from facerec_torch.runtime.transfer import pack_tree, tree_spec, unpack_tree
@@ -150,8 +151,11 @@ class EmbedderBank:
     Real banks support deferred fetches: :meth:`dispatch_crop_embed`
     leaves the embeddings on the device as one uint8 buffer, which the
     extract loop fetches with its group and restores with
-    :meth:`unpack`.  Test stubs subclass it and override ``__call__``
-    only (host embeddings at once)."""
+    :meth:`unpack`.  On a card every full chunk of ``EMBED_BATCH``
+    crops replays one captured CUDA graph of the chunk's forward
+    (``graph``, a :class:`ChunkGraph`; ``captures`` counts them).  Test
+    stubs subclass it and override ``__call__`` only (host embeddings
+    at once)."""
 
     supports_deferred = False
     takes_landmarks = False
@@ -172,9 +176,13 @@ class EmbedderBank:
         self.names = [e.name for e in embedders.values()]
         self.dims = [int(e.embedding_dim) for e in embedders.values()]
         self.total_dim = sum(self.dims)
+        self.span_names = ("embed_replay",)
+        self.counter_names = ("embed_graph_replays", "embed_eager_chunks")
         if self.takes_landmarks:
-            self.span_names = ("flush_align",)
-            self.counter_names = ("aligned_crops", "align_degenerate")
+            self.span_names += ("flush_align",)
+            self.counter_names += ("aligned_crops", "align_degenerate")
+        self.graph: Optional[ChunkGraph] = None
+        self.captures = 0
         self.supports_deferred = True
 
     @classmethod
@@ -198,18 +206,56 @@ class EmbedderBank:
         return cls(load_facenet_embedders(weights_dir, device=device,
                                           dtype=dtype))
 
-    def dispatch_packed(self, crops: torch.Tensor) -> torch.Tensor:
+    def dispatch_packed(self, crops: torch.Tensor,
+                        spans: Optional[Spans] = None) -> torch.Tensor:
         """Embed a crop batch with every embedder, ``EMBED_BATCH`` crops
         at a time, leaving the (N·total_dim·4,) uint8 buffer of float32
-        embeddings on the device."""
-        return pack_tree(torch.cat([
-            torch.cat(self._embed(chunk), dim=-1).float()
-            for chunk in crops.split(EMBED_BATCH)]))
+        embeddings on the device.  A full chunk on a card replays the
+        bank's graph of :meth:`_embed_chunk` (captured at the first);
+        a shorter chunk, and every chunk on the CPU, runs it eagerly.
+        A chunk of another shape, dtype or device, or one under other
+        launch settings (TF32: :func:`graphs.launch_settings`), replaces
+        the graph by a new capture, as eager would launch other kernels.
+        ``spans`` counts the chunks of each kind and times the replays
+        (``embed_replay``)."""
+        n = int(crops.shape[0])
+        out = torch.empty((n, self.total_dim), dtype=torch.float32,
+                          device=crops.device)
+        replays = 0
+        for a in range(0, n, EMBED_BATCH):
+            chunk = crops[a:a + EMBED_BATCH]
+            if chunk.is_cuda and len(chunk) == EMBED_BATCH:
+                key = (tuple(chunk.shape), chunk.dtype, chunk.device,
+                       graphs.launch_settings())
+                if self.graph is None or self.graph.key != key:
+                    self.graph = None       # its memory goes first
+                    self.graph = ChunkGraph(self._embed_chunk, chunk, key)
+                    self.captures += 1
+                # The profiler gives a graph's kernels to the innermost
+                # function-scope host range open at its launch: this span
+                # keeps them inside the caller's ranges.  The graph's
+                # output is copied out before the next replay.
+                with (spans.span("embed_replay") if spans is not None
+                      else contextlib.nullcontext()):
+                    out[a:a + EMBED_BATCH] = self.graph.replay(chunk)
+                replays += 1
+            else:
+                out[a:a + len(chunk)] = self._embed_chunk(chunk)
+        if spans is not None:
+            spans.count("embed_graph_replays", replays)
+            spans.count("embed_eager_chunks",
+                        -(-n // EMBED_BATCH) - replays)
+        return pack_tree(out)
 
     def _embed(self, crops: torch.Tensor):
         if self.pooled is not None:
             return self.pooled(crops)
         return tuple(e(crops) for e in self.embedders.values())
+
+    def _embed_chunk(self, crops: torch.Tensor) -> torch.Tensor:
+        """Every embedder's vectors side by side: (n, total_dim)
+        float32."""
+        return torch.cat(self._embed(crops), dim=-1).float()
 
     def dispatch_crop_embed(self, stack: torch.Tensor, frame_idx: np.ndarray,
                             crop_boxes: np.ndarray,
@@ -221,10 +267,11 @@ class EmbedderBank:
         repeated from the last to one a slot of ``frame_idx`` as the
         boxes are padded.  All three are host arrays.  The alignment's
         host work (stacking, copy, launch) is the ``flush_align`` span
-        of ``spans``, which count its real and degenerate sets."""
+        of ``spans``, which count its real and degenerate sets and the
+        embed's chunks (:meth:`dispatch_packed`)."""
         if not self.takes_landmarks:
-            return self.dispatch_packed(crops_of(stack, frame_idx,
-                                                 crop_boxes))
+            return self.dispatch_packed(
+                crops_of(stack, frame_idx, crop_boxes), spans)
         if landmarks is None:
             raise ValueError("an ArcFace bank needs the faces' landmarks")
         with (spans.span("flush_align") if spans is not None
@@ -248,7 +295,7 @@ class EmbedderBank:
             aligned = align_ops.align(
                 stack, torch.from_numpy(frame_idx).to(dev),
                 torch.from_numpy(ldm).to(dev))
-        return self.dispatch_packed(aligned)
+        return self.dispatch_packed(aligned, spans)
 
     def unpack(self, buf: np.ndarray, n: int) -> Dict[str, np.ndarray]:
         """Fetched bytes → {checkpoint: (n, dim) float32}."""
@@ -261,6 +308,29 @@ class EmbedderBank:
         pull."""
         return self.unpack(self.dispatch_packed(crops).cpu().numpy(),
                            int(crops.shape[0]))
+
+
+class ChunkGraph:
+    """A bank's forward over one chunk shape, captured as one CUDA graph
+    on a copy of the first chunk (:func:`graphs.capture`) under ``key``,
+    what it serves.  :meth:`replay` copies a chunk of that shape into
+    the static input and returns the static output, which the next
+    replay overwrites.  The graph replays the eager forward's kernels on
+    the same shapes, so its bytes are the eager forward's."""
+
+    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
+                 example: torch.Tensor, key: tuple):
+        self.key = key
+        with torch.inference_mode():
+            self.static_in = example.clone()
+            self.graph, self.static_out = graphs.capture(
+                lambda: forward(self.static_in), example.device)
+
+    def replay(self, chunk: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            self.static_in.copy_(chunk)
+            self.graph.replay()
+        return self.static_out
 
 
 def crops_of(stack: torch.Tensor, frame_idx: np.ndarray,
@@ -463,10 +533,11 @@ class ShardConsumer:
 
         with self.spans.span("flush_embed"):
             if getattr(self.embedders, "supports_deferred", False):
-                # a bank that aligns takes the real faces' landmarks
+                # a bank that reports into the spans (every
+                # EmbedderBank) takes them and the real faces' landmarks
                 extra = ({"landmarks": [p.landmarks for p in ready],
                           "spans": self.spans}
-                         if getattr(self.embedders, "takes_landmarks", False)
+                         if getattr(self.embedders, "counter_names", ())
                          else {})
                 buf = self.embedders.dispatch_crop_embed(
                     dev_stack, frame_idx, crop_boxes, **extra)

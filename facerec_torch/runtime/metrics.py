@@ -17,8 +17,12 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``dispatch_tracker``, ``dispatch_pack`` under ``dispatch``;
   ``consume_unpack``, ``consume_assemble``, ``consume_plan``,
   ``consume_write`` under ``consume``; ``flush_embed`` under
-  ``flush_dispatch``; with a bank that aligns its crops (ArcFace),
-  ``flush_align`` under ``flush_embed``: the host's part of the
+  ``flush_dispatch``; with a real bank (``EmbedderBank``),
+  ``embed_replay`` under ``flush_embed``: the host's part of the
+  chunks' graph replays (the copy in, the launch, the copy out), whose
+  host range holds the replayed kernels in a profile; with a bank
+  that aligns its crops (ArcFace), ``flush_align`` under
+  ``flush_embed``: the host's part of the
   alignment in the bank (the landmarks' stacking and padding, their
   copy to the device and the kernel's launch); and, under ``FACEREC_PHASE_LOG``
   only, ``fetch_compute_wait`` under ``fetch``.  A parent's self time
@@ -31,7 +35,12 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``feature_records`` (lines written to the features file),
   ``feature_records_native`` (of them, those the native writer wrote,
   ``contract/featjson.py``) and ``feature_bytes`` (their bytes); with
-  a bank that aligns, ``aligned_crops`` (real crops aligned) and
+  a real bank (``EmbedderBank``), ``embed_graph_replays`` (chunks of
+  ``EMBED_BATCH`` slots replayed from the bank's CUDA graph) and
+  ``embed_eager_chunks`` (chunks run eagerly: every chunk on the CPU, a
+  shorter one on a card), so ``embed_graph_replays`` over their sum is
+  the share the graph took; with a bank that aligns, also
+  ``aligned_crops`` (real crops aligned) and
   ``align_degenerate`` (of them, those whose landmarks have no
   similarity, ``ops/align.py``).
 

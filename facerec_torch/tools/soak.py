@@ -74,7 +74,8 @@ class StubBank(EmbedderBank):
         if device is not None:
             self.proj = self.proj.to(device)
 
-    def dispatch_packed(self, crops: torch.Tensor) -> torch.Tensor:
+    def dispatch_packed(self, crops: torch.Tensor,
+                        spans=None) -> torch.Tensor:
         x = crops.float()
         n = x.shape[0]
         flat = x.reshape(n, 5, 32, 5, 32, 3).mean(dim=(2, 4)).reshape(

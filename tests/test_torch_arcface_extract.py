@@ -95,7 +95,7 @@ class ParentBank(extract.EmbedderBank):
     """The FaceNet bank's embedding as it was before the alignment: every
     checkpoint on the box crops, 64 at a time."""
 
-    def dispatch_packed(self, crops):
+    def dispatch_packed(self, crops, spans=None):
         return pack_tree(torch.cat([
             torch.cat(self.pooled(chunk), dim=-1).float()
             for chunk in crops.split(extract.EMBED_BATCH)]))

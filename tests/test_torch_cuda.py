@@ -333,3 +333,98 @@ def test_align_warp_equals_plain(card, n, b, h, w):
     assert align.launches["align_warp"] == before + 1
     want = align.align_plain(frames, idx, torch.from_numpy(ldm))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [192, 130])
+@pytest.mark.parametrize("family", ["facenet", "arcface"])
+def test_bank_replays_full_chunks_as_eager(card, family, n):
+    """The seeded FaceNet bank and the seeded ArcFace bank: every full
+    chunk of 64 crops replays the bank's one captured CUDA graph, equal
+    to the eager chunk bit for bit, and a shorter chunk runs eagerly;
+    the second of two dispatches leaves the first's result as it was
+    (the graph's output is copied out before the next replay)."""
+    from facerec_torch.config import ARCFACE_NAME
+    from facerec_torch.models.iresnet import ArcFaceEmbedder
+    from facerec_torch.pipeline.extract import EMBED_BATCH, EmbedderBank
+    from facerec_torch.runtime.metrics import Spans
+
+    g = torch.Generator(card).manual_seed(n)
+    if family == "facenet":
+        bank = EmbedderBank.create_default(card)
+        shape, scale, shift = (n, 160, 160, 3), 255.0, 0.0
+    else:
+        bank = EmbedderBank({ARCFACE_NAME: ArcFaceEmbedder(
+            ARCFACE_NAME, card, seed=1)})
+        shape, scale, shift = (n, 3, 112, 112), 2.0, -1.0
+    batches = [torch.rand(shape, generator=g, device=card) * scale + shift
+               for _ in range(2)]
+    with torch.inference_mode():
+        want = [torch.cat([bank._embed_chunk(c)
+                           for c in x.split(EMBED_BATCH)])
+                for x in batches]
+    spans = [Spans("t", (), bank.counter_names) for _ in batches]
+    got = [bank.dispatch_packed(x, sp) for x, sp in zip(batches, spans)]
+    torch.cuda.synchronize()
+    assert bank.captures == 1
+    full, tail = divmod(n, EMBED_BATCH)
+    for buf, ref, sp in zip(got, want, spans):
+        emb = buf.view(torch.float32).reshape(n, bank.total_dim)
+        gap = float((emb - ref).abs().max())
+        assert torch.equal(emb, ref), gap
+        assert sp.counters["embed_graph_replays"] == full
+        assert sp.counters["embed_eager_chunks"] == (tail > 0)
+
+
+def test_bank_graph_follows_the_launch_settings(card):
+    """A graph keeps the kernels of its capture: a chunk under other TF32
+    settings is captured anew and equals the eager chunk under those
+    settings, which differ from the float32 ones."""
+    from facerec_torch.models.facenet import FaceNetEmbedder
+    from facerec_torch.pipeline.extract import EMBED_BATCH, EmbedderBank
+
+    bank = EmbedderBank({"a": FaceNetEmbedder("a", 128, card, seed=2)})
+    g = torch.Generator(card).manual_seed(3)
+    crops = torch.rand((EMBED_BATCH, 160, 160, 3), generator=g,
+                       device=card) * 255
+    got = {}
+    for tf32 in (True, False, True):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            emb = bank.dispatch_packed(crops).view(torch.float32)
+            want = bank._embed_chunk(crops).reshape(-1)
+        assert torch.equal(emb, want), tf32
+        got[tf32] = emb
+    assert bank.captures == 3
+    assert not torch.equal(got[True], got[False])
+
+
+def test_replayed_kernels_fall_under_the_callers_range(card):
+    """In a profile the graph's kernels belong to the bank's
+    ``embed_replay`` span, inside a user range around the dispatch: the
+    range's device time holds all the device work of the dispatch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from facerec_torch.models.facenet import FaceNetEmbedder
+    from facerec_torch.pipeline.extract import EMBED_BATCH, EmbedderBank
+    from facerec_torch.runtime.metrics import Spans
+
+    bank = EmbedderBank({"a": FaceNetEmbedder("a", 128, card, seed=2)})
+    g = torch.Generator(card).manual_seed(4)
+    crops = torch.rand((2 * EMBED_BATCH, 160, 160, 3), generator=g,
+                       device=card) * 255
+    sp = Spans("t", bank.span_names, bank.counter_names)
+    bank.dispatch_packed(crops, sp)          # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("caller"):
+            bank.dispatch_packed(crops, sp)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == cuda and e.name != "caller")
+    caller = [e for e in prof.events()
+              if e.name == "caller" and e.device_type != cuda]
+    assert sp.counters["embed_graph_replays"] == 4 and device_us > 0
+    assert len(caller) == 1
+    assert caller[0].device_time_total >= 0.99 * device_us, (
+        caller[0].device_time_total, device_us)

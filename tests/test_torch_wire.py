@@ -194,9 +194,9 @@ def test_one_crop_embed_dispatch_per_fetch_group(clip, tmp_path):
             self.crop_embed_calls += 1
             return super().dispatch_crop_embed(stack, frame_idx, crop_boxes)
 
-        def dispatch_packed(self, crops):
+        def dispatch_packed(self, crops, spans=None):
             self.packed_calls += 1
-            return super().dispatch_packed(crops)
+            return super().dispatch_packed(crops, spans)
 
     bank, group = CountingBank(), 4
     run_port(clip, str(tmp_path / "out"), block_frames=8, group=group,
