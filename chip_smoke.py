@@ -52,6 +52,7 @@ from facerec_torch.ops import scene as scene_ops
 from facerec_torch.pipeline.extract import PHASES, EmbedderBank, run_extract
 from facerec_torch.runtime import launches as kernel_launches
 from facerec_torch.runtime.device import resolve_device
+from facerec_torch.tools.soak import StubBank
 from facerec_torch.track import TrackerConfig, init_tracker, run_block
 from facerec_torch.track import tracker as trk
 from facerec_torch.track.streams import (CROWDS, crossing_stream,
@@ -750,29 +751,6 @@ def host_call_ms(fn, calls: int = 200) -> float:
     return ms
 
 
-def tracker_clocks(tcfg, blocks, dev):
-    """Per-phase SM cycles per frame of ``tracker_scan``'s measuring
-    build (``csrc/tracker.cu -DFR_TRACKER_CLOCKS``) over ``blocks``,
-    median and mean over the frames (the median of the frames' sums as
-    ``total``); its emissions must equal the kernel's."""
-    state, want, clocks = init_tracker(tcfg, dev), [], []
-    for bx, va, fl, f0 in blocks:
-        state, emit, c = trk.run_block_clocks(tcfg, state, bx, va, fl, f0)
-        want.append((state, emit))
-        clocks.append(c)
-    err = compare_scans(want, scan(trk.run_block, tcfg, blocks, dev),
-                        "clocks")
-    if err:
-        raise AssertionError(f"tracker_clocks differs from the kernel: {err}")
-    c = torch.cat(clocks).cpu().numpy()
-    return {"frames": len(c),
-            "median": dict(zip(trk.CLOCK_PHASES,
-                               np.median(c, axis=0).tolist())),
-            "mean": dict(zip(trk.CLOCK_PHASES, c.mean(axis=0).tolist())),
-            "total_median": float(np.median(c.sum(axis=1))),
-            "total_mean": float(c.sum(axis=1).mean())}
-
-
 def d2h_copies(fn):
     """Device→host copies that ``fn()`` makes, by torch.profiler; a
     window that saw no device activity at all raises (it would count 0
@@ -844,19 +822,15 @@ def tracker_timing(tcfg, block, dev, rate):
             **tracker_bound(tcfg, bx, eager()[1], rate)}
 
 
-# the cases whose per-phase cycles the tracker phase prints
-CLOCK_CASES = ("main_path", "crossing", "crowd48_T64")
-
-
 def phase_tracker(dev, film, card, rate):
     """The tracker_scan kernel against run_block_plain on the card:
     integer emissions and state exact, boxes and the Kalman state within
     BOX_ATOL, on phase 3's detections, the CPU tests' streams, the
     crossing stream and the crowds; the frames that took the JV solve
     (plain version's count); device→host copies inside run_block (0);
-    the measuring build's cycles per frame in each phase; the kernel's
-    and the plain loop's ms per 128-frame block, the wrapper's host ms
-    and the bound; the kernel's ms on crowd48 at T = 64."""
+    the kernel's and the plain loop's ms per 128-frame block, the
+    wrapper's host ms and the bound; the kernel's ms on crowd48 at
+    T = 64."""
     cfg = ExtractConfig(face_threshold=0.9)
     rows, err, jv_total = {}, 0.0, 0
     with torch.inference_mode():
@@ -885,7 +859,6 @@ def phase_tracker(dev, film, card, rate):
         if rows["crowd48_T64"]["most_emitting"] <= 32:
             raise AssertionError(f"crowd48 never filled 33 slots: {rows}")
         by_name = {name: (tcfg, blocks) for name, tcfg, blocks in cases}
-        clocks = {k: tracker_clocks(*by_name[k], dev) for k in CLOCK_CASES}
         tcfg, (bx, va, fl, _) = cases[0][1], cases[0][2][0]
         state0 = init_tracker(tcfg, dev)
         kernel = lambda: trk.run_block(tcfg, state0, bx, va, fl, 0)
@@ -904,8 +877,7 @@ def phase_tracker(dev, film, card, rate):
             "plain_d2h_copies": plain_copies,
             "block_frames": len(bx), **main, "plain_ms": wall_ms(plain),
             "crowd48_T64": tracker_timing(crowd_cfg, crowd_blocks[0], dev,
-                                          rate),
-            "clocks": clocks}
+                                          rate)}
     emit(result)
     return result
 
@@ -1021,28 +993,6 @@ def phase_device_step(dev, card):
     return result
 
 
-class StubBank(EmbedderBank):
-    """Deterministic stand-in for the FaceNet bank: pooled crop pixels
-    through a fixed random projection (the CPU tests' stub)."""
-
-    def __init__(self):
-        rng = np.random.default_rng(0)
-        self.proj = {n: rng.normal(size=(75, 16)).astype(np.float32)
-                     for n in ("m1", "m2")}
-
-    def __call__(self, crops):
-        x = crops.cpu().numpy().astype(np.float32)
-        n = x.shape[0]
-        flat = x.reshape(n, 5, 32, 5, 32, 3).mean(
-            axis=(2, 4)).reshape(n, -1) / 255.0
-        out = {}
-        for name, p in self.proj.items():
-            e = flat @ p
-            e /= np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-9)
-            out[name] = e
-        return out
-
-
 def compare_card_cpu(roots):
     """Trajectories and scene changes of a card run and a CPU run
     identical, feature records identical but for the embeddings (within
@@ -1097,7 +1047,7 @@ def phase_card_vs_cpu(dev, out_root):
             root = os.path.join(out_root, wire, label)
             run_extract(film, dataclasses.replace(cfg, wire_format=wire),
                         root, detector=ScriptedDetector(film),
-                        embedders=StubBank(), device=d)
+                        embedders=StubBank(device=d), device=d)
             roots[label] = os.path.join(root, "778-data")
         wire_errs[wire] = compare_card_cpu(roots)
         if wire == "rgb":
@@ -1110,11 +1060,12 @@ def phase_card_vs_cpu(dev, out_root):
         data = outs[label]
         merge_mod.run_merge(data, 778, MergeConfig(min_face_size=20))
         if label == "card":
-            write_actor_zip(zpath, os.path.join(data, "features.jsonl"), "m1")
+            write_actor_zip(zpath, os.path.join(data, "features.jsonl"),
+                            EMB_NAME)
         run_cluster(data, ClusterConfig(size=2, min_size=1, max_size=4,
-                                        emb_name="m1"), d)
-        emb, _ = classify_mod.read_actor_embeddings(zpath, "m1")
-        ccfg = ClassifyConfig(k=3, emb_name="m1", min_samples=3)
+                                        emb_name=EMB_NAME), d)
+        emb, _ = classify_mod.read_actor_embeddings(zpath, EMB_NAME)
+        ccfg = ClassifyConfig(k=3, emb_name=EMB_NAME, min_samples=3)
         x, y = classify_mod.build_training_set(emb, ccfg.min_samples)
         classify_mod.run_classify(data, x, y, ccfg, d)
     for fname in ("trajectories.jsonl", "scene_changes.json",
@@ -1250,7 +1201,8 @@ def phase_probe_quality(dev, out_root):
         score_threshold=0.9, min_face_size=20)
     run_extract(film, ExtractConfig(face_threshold=0.9, resume=False,
                                     save_images=False),
-                out_root, detector=harness, embedders=StubBank(), device=dev)
+                out_root, detector=harness, embedders=StubBank(device=dev),
+                device=dev)
     merge_mod.main(["--path", os.path.join(out_root, "*-data"),
                     "--min-face-size", "20"])
     data = os.path.join(out_root, "777-data")
@@ -1724,7 +1676,6 @@ def phase_wire(dev, out_root, film, card):
     exact; with a scripted detector yuv420-delta's trajectories and cuts
     equal rgb's and its features cover the same faces."""
     from facerec_torch.tools.embedding_eval import evaluate_embedding_parity
-    from facerec_torch.tools.soak import StubBank as DeferredStub
 
     n_blocks = -(-film.n_frames // ExtractConfig.block_frames)
     detector, embedders = full_width_models(
@@ -1782,7 +1733,7 @@ def phase_wire(dev, out_root, film, card):
         run_extract(film, ExtractConfig(save_images=False, resume=False,
                                         wire_format=wire), root,
                     detector=ScriptedDetector(film),
-                    embedders=DeferredStub(device=dev), device=dev)
+                    embedders=StubBank(device=dev), device=dev)
         scripted[wire] = read_outputs(root, 777)
     for sub in ("trajectories", "scene_changes"):
         if scripted["rgb"][sub] != scripted["yuv420-delta"][sub]:

@@ -119,24 +119,6 @@ struct ScanArgs {
 
 namespace {
 
-// The measuring build (-DFR_TRACKER_CLOCKS, library tracker_clocks):
-// clock64() stamps at the frame's phase boundaries, each behind a
-// barrier, each phase's cycles written to clocks (B, kPhases) int64 by
-// thread 0.  Phases: load (the chunk's staging, on its first frame),
-// predict, utilities and argmax (with the collision count), collision
-// check (a barrier: the count is taken in the utilities), JV (with the
-// detections' slots), update, unfollow and spawn, emissions.
-#ifdef FR_TRACKER_CLOCKS
-constexpr int kPhases = 8;
-#define FR_STAMP(k) (__syncthreads(), stamp[k] = clock64())
-#define FR_CLOCKS_PARAM , long long* clocks
-#define FR_CLOCKS_ARG , clocks
-#else
-#define FR_STAMP(k) (void)0
-#define FR_CLOCKS_PARAM
-#define FR_CLOCKS_ARG
-#endif
-
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kMaxSlots = 128;       // T and D; 8 threads a slot
 constexpr int kMaxThreads = 8 * kMaxSlots;
@@ -523,7 +505,7 @@ __host__ __device__ inline Layout layout(int T, int D, int chunk) {
 // unbounded, no spills; 1,024 beyond: 64 registers a thread)
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1)
-tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
+tracker_scan_kernel(const ScanArgs a, int chunk) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int T = a.tracks, D = a.dets, K = max(T, D), B = a.frames;
     const Layout L = layout(T, D, chunk);
@@ -580,13 +562,9 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
     }
     int next_uid = *a.next_uid;
     const int frame0 = *a.frame0;
-#ifdef FR_TRACKER_CLOCKS
-    long long stamp[kPhases + 1];
-#endif
 
     for (int c0 = 0; c0 < B; c0 += chunk) {
         const int nf = min(chunk, B - c0);
-        FR_STAMP(0);
         __syncthreads();    // the previous chunk's frames are done
         // stage the chunk's detections, their box_to_z and areas
 #pragma unroll 4
@@ -603,10 +581,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
 
         for (int fl = 0; fl < nf; ++fl) {
             const int f = c0 + fl, frame = frame0 + f, at0 = fl * D;
-#ifdef FR_TRACKER_CLOCKS
-            if (fl) FR_STAMP(0);
-#endif
-            FR_STAMP(1);
 
             // 1-2. scene-cut kill, predict the followed slots: rows
             // 0..3 add rows 4..7 (F = I + upper identity at offset 4)
@@ -646,7 +620,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
             }
             if (tid == 0) *s_flag = 0;
             __syncthreads();
-            FR_STAMP(2);
 
             // 3. utilities, a warp per detection row: the IoU against
             // every followed slot, the row's maximum (a shuffle-free
@@ -704,10 +677,8 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
                         *s_flag = 1;
                 }
             }
-            FR_STAMP(3);
             __syncthreads();
             const bool fast = D <= T && *s_flag == 0;
-            FR_STAMP(4);
 
             // 4. the association: the argmaxes, or the JV solve; each
             // detection's slot, the unmatched and the free as bit words
@@ -738,7 +709,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
                 if (lane == 0) s_fm[w] = fm;
             }
             __syncthreads();
-            FR_STAMP(5);
 
             // 5. update the matched slots' posteriors (the utilities'
             // shared memory is free again)
@@ -752,7 +722,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
                 tsu = 0;
                 if (hist == hits) ++ih;
             }
-            FR_STAMP(6);
 
             // 6. unfollow rules, then spawn: the r-th unmatched detection
             // takes the r-th free slot
@@ -777,7 +746,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
                 tsu = 0;
             }
             active = still || spawned;
-            FR_STAMP(7);
 
             // emissions
             const float e0 = __shfl_sync(kAll, xr, 0, 8);
@@ -814,12 +782,6 @@ tracker_scan_kernel(const ScanArgs a, int chunk FR_CLOCKS_PARAM) {
             if (tid == 0) a.e_overflow[f] = n_um - n_spawn;
             next_uid += n_spawn;
             __syncthreads();    // the shared tables are rewritten next frame
-#ifdef FR_TRACKER_CLOCKS
-            FR_STAMP(8);
-            if (tid == 0)
-                for (int k = 0; k < kPhases; ++k)
-                    clocks[(size_t)f * kPhases + k] = stamp[k + 1] - stamp[k];
-#endif
         }
     }
 
@@ -847,12 +809,7 @@ extern "C" {
 // Launches one CTA of 8 threads per slot (whole warps) on `stream`, does
 // not synchronise, allocates nothing; returns the launch's cudaError_t
 // (0 on success), or cudaErrorInvalidValue for T or D outside 1..128.
-#ifdef FR_TRACKER_CLOCKS
-int fr_tracker_scan_clocks(const ScanArgs* args, long long* clocks,
-                           cudaStream_t stream) {
-#else
 int fr_tracker_scan(const ScanArgs* args, cudaStream_t stream) {
-#endif
     const int T = args->tracks, D = args->dets, B = args->frames;
     if (T < 1 || T > kMaxSlots || D < 1 || D > kMaxSlots || B < 0)
         return (int)cudaErrorInvalidValue;
@@ -876,7 +833,7 @@ int fr_tracker_scan(const ScanArgs* args, cudaStream_t stream) {
         if (e != cudaSuccess) return (int)e;
         opted_in[wide] = true;
     }
-    kernel<<<1, threads, bytes, stream>>>(*args, chunk FR_CLOCKS_ARG);
+    kernel<<<1, threads, bytes, stream>>>(*args, chunk);
     return (int)cudaGetLastError();
 }
 

@@ -7,11 +7,6 @@ go into ``facerec_torch/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of the source and the flags, so an edited source
 is rebuilt and a built one is reused.  A missing compiler or a failed
 compile raises: there is no fallback to the plain versions.
-
-A variant builds one source a second time with its own defines under
-its own library name (``tracker_clocks``: ``tracker.cu`` with
-``-DFR_TRACKER_CLOCKS``, the measuring build); the main path loads the
-plain names only.
 """
 from __future__ import annotations
 
@@ -35,14 +30,12 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # float expression as their plain versions' separate tensor operations
 # do (no contraction of a multiply and an add into one fma)
 EXTRA_FLAGS = {"tracker": ("-fmad=false",), "align": ("-fmad=false",)}
-# library name -> (source name, its further flags)
-VARIANTS = {"tracker_clocks": ("tracker", ("-DFR_TRACKER_CLOCKS",))}
 
 
 def source(name: str) -> str:
     """The ``csrc`` source that library ``name`` is built from: its
     ``.cu`` file, else its ``.cpp`` file."""
-    stem = os.path.join(CSRC_DIR, VARIANTS.get(name, (name,))[0])
+    stem = os.path.join(CSRC_DIR, name)
     return stem + ".cu" if os.path.exists(stem + ".cu") else stem + ".cpp"
 
 
@@ -53,9 +46,8 @@ def is_host(name: str) -> bool:
 
 def flags(name: str) -> tuple:
     """The compiler's flags for library ``name``."""
-    src, extra = VARIANTS.get(name, (name, ()))
     base = CXX_FLAGS if is_host(name) else NVCC_FLAGS
-    return base + EXTRA_FLAGS.get(src, ()) + extra
+    return base + EXTRA_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -129,13 +121,12 @@ def build(name: str, verbose: bool = False) -> str:
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Build every ``csrc`` source and every variant at once, one
-    compiler per library, all started together; returns {name: library
-    path}."""
+    """Build every ``csrc`` source at once, one compiler per library,
+    all started together; returns {name: library path}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = sorted([os.path.splitext(f)[0] for f in os.listdir(CSRC_DIR)
-                    if f.endswith((".cu", ".cpp"))] + list(VARIANTS))
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC_DIR)
+                   if f.endswith((".cu", ".cpp")))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = {n: pool.submit(build, n, verbose) for n in names}
         return {n: f.result() for n, f in futures.items()}

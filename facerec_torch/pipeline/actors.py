@@ -24,9 +24,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from facerec_torch.config import FACE_IMAGE_SIZE
 from facerec_torch.ops.boxes import round_clip_box
-from facerec_torch.ops.crops import crop_resize
 from facerec_torch.pipeline.faces import embed_crop_box
 from facerec_torch.runtime.device import resolve_device, use_full_float32
 
@@ -213,17 +211,12 @@ class FaceEmbedderForImages:
         tight = round_clip_box(box, w, h)
         crop_box = embed_crop_box(tight, w, h)
         bank = self.embedders
-        if getattr(bank, "supports_deferred", False):
-            ldm = det.landmarks[0].cpu().numpy()[valid.argmax()]
-            vecs = bank.unpack(bank.dispatch_crop_embed(
-                frames, np.zeros(1, np.int64), crop_box[None],
-                ldm[None]).cpu().numpy(), 1)
-        else:
-            vecs = bank(crop_resize(
-                frames, torch.zeros(1, dtype=torch.int64,
-                                    device=self.device),
-                torch.from_numpy(crop_box[None]).to(self.device),
-                FACE_IMAGE_SIZE))
+        # the face's landmarks, for a bank that aligns to them
+        ldm = (det.landmarks[0].cpu().numpy()[valid.argmax()][None]
+               if bank.takes_landmarks else None)
+        vecs = bank.unpack(bank.dispatch_crop_embed(
+            frames, np.zeros(1, np.int64), crop_box[None], ldm).cpu().numpy(),
+            1)
         embeddings = {name: v[0].tolist() for name, v in vecs.items()}
         return {"box": tight, "embeddings": embeddings}
 

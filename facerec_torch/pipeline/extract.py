@@ -97,18 +97,14 @@ class FlushPlan:
 
 @dataclasses.dataclass
 class PendingEmbed:
-    """A dispatched crop+embed batch of one or more flushes.
-
-    A deferred bank leaves ``dev_packed``, a uint8 device buffer of
-    ``nbytes`` bytes that rides the next group fetch and comes back to
-    :meth:`ShardConsumer.complete_flush`; a host bank (test stubs) fills
-    ``host_embeddings`` at once."""
+    """A dispatched crop+embed batch of one or more flushes:
+    ``dev_packed``, the bank's uint8 device buffer of its embeddings,
+    rides the next group fetch and comes back to
+    :meth:`ShardConsumer.complete_flush`."""
 
     ready: List["faces_mod.PendingFace"]
     tight_boxes: List[np.ndarray]
-    dev_packed: Optional[torch.Tensor] = None
-    nbytes: int = 0
-    host_embeddings: Optional[Dict[str, np.ndarray]] = None
+    dev_packed: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -148,20 +144,22 @@ class EmbedderBank:
     bank holds one kind (``takes_landmarks``, from its embedders), so it
     computes one crop.
 
-    Real banks support deferred fetches: :meth:`dispatch_crop_embed`
-    leaves the embeddings on the device as one uint8 buffer, which the
-    extract loop fetches with its group and restores with
-    :meth:`unpack`.  On a card every full chunk of ``EMBED_BATCH``
-    crops replays one captured CUDA graph of the chunk's forward
-    (``graph``, a :class:`ChunkGraph`; ``captures`` counts them).  Test
-    stubs subclass it and override ``__call__`` only (host embeddings
-    at once)."""
+    :meth:`dispatch_crop_embed` leaves the embeddings on the device as
+    one uint8 buffer, which the extract loop fetches with its group and
+    restores with :meth:`unpack`.  On a card every full chunk of
+    ``EMBED_BATCH`` crops replays one captured CUDA graph of the
+    chunk's forward (``graph``, a :class:`ChunkGraph`; ``captures``
+    counts them).  A stand-in (the tests' and the soak's stubs) sets
+    ``names``, ``dims`` and ``total_dim`` and overrides
+    :meth:`_embed_chunk` alone; it declares no spans or counters, so
+    the loop calls it with the crop boxes alone."""
 
-    supports_deferred = False
     takes_landmarks = False
     # the spans and counters the bank adds to the extract report
     span_names: tuple = ()
     counter_names: tuple = ()
+    graph: Optional[ChunkGraph] = None
+    captures = 0
 
     def __init__(self, embedders: Dict[str, object]):
         self.embedders = embedders
@@ -181,9 +179,6 @@ class EmbedderBank:
         if self.takes_landmarks:
             self.span_names += ("flush_align",)
             self.counter_names += ("aligned_crops", "align_degenerate")
-        self.graph: Optional[ChunkGraph] = None
-        self.captures = 0
-        self.supports_deferred = True
 
     @classmethod
     def create_default(cls, device: torch.device,
@@ -532,22 +527,14 @@ class ShardConsumer:
         self.spans.count("embed_dispatches", 1)
 
         with self.spans.span("flush_embed"):
-            if getattr(self.embedders, "supports_deferred", False):
-                # a bank that reports into the spans (every
-                # EmbedderBank) takes them and the real faces' landmarks
-                extra = ({"landmarks": [p.landmarks for p in ready],
-                          "spans": self.spans}
-                         if getattr(self.embedders, "counter_names", ())
-                         else {})
-                buf = self.embedders.dispatch_crop_embed(
-                    dev_stack, frame_idx, crop_boxes, **extra)
-                pe = PendingEmbed(ready, tight_boxes, dev_packed=buf,
-                                  nbytes=int(buf.shape[0]))
-            else:
-                emb = self.embedders(crops_of(dev_stack, frame_idx,
-                                              crop_boxes))
-                pe = PendingEmbed(ready, tight_boxes, host_embeddings={
-                    name: v[:n_real] for name, v in emb.items()})
+            # a bank that reports into the spans takes them and the real
+            # faces' landmarks; a stand-in, the crop boxes alone
+            extra = ({"landmarks": [p.landmarks for p in ready],
+                      "spans": self.spans}
+                     if self.embedders.counter_names else {})
+            pe = PendingEmbed(ready, tight_boxes,
+                              self.embedders.dispatch_crop_embed(
+                                  dev_stack, frame_idx, crop_boxes, **extra))
         self._trim_window()
         return pe
 
@@ -566,13 +553,10 @@ class ShardConsumer:
         ``pe.dev_packed`` alone."""
         with self.spans.span("consume_write"):
             n = len(pe.ready)
-            if pe.host_embeddings is not None:
-                embeddings = pe.host_embeddings
-            else:
-                if buf is None:
-                    buf = pe.dev_packed.cpu().numpy()
-                    self.spans.count("fetch_bytes", buf.size)
-                embeddings = self.embedders.unpack(buf, n)
+            if buf is None:
+                buf = pe.dev_packed.cpu().numpy()
+                self.spans.count("fetch_bytes", buf.size)
+            embeddings = self.embedders.unpack(buf, n)
 
             def record(i: int, emb: dict) -> dict:
                 p = pe.ready[i]
@@ -815,8 +799,8 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
                                       budget_bytes=(2 << 30) // spans),
         pixel_format="i420" if wire_fmt == "yuv420-delta" else "rgb")
     jpeg_writer = make_jpeg_writer(cfg)
-    sp = Spans("extract", SPANS + getattr(embedders, "span_names", ()),
-               COUNTERS + getattr(embedders, "counter_names", ()))
+    sp = Spans("extract", SPANS + embedders.span_names,
+               COUNTERS + embedders.counter_names)
     consumer = ShardConsumer(dirs, movie_id, cfg, beg, end, d_w, d_h,
                              embedders, device, sp, jpeg_writer,
                              resume_state=resume_state)
@@ -907,8 +891,9 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
         with sp.span("consume", group=group_i):
             off = 0
             for pe in inflight["deferred"]:
-                consumer.complete_flush(pe, buf[off:off + pe.nbytes])
-                off += pe.nbytes
+                n = int(pe.dev_packed.shape[0])
+                consumer.complete_flush(pe, buf[off:off + n])
+                off += n
             for blk in inflight["blocks"]:
                 frame0, frames = blk["frame0"], blk["frames"]
                 n = int(blk["packed"].shape[0])
@@ -930,16 +915,12 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
         dispatch_flushes(group=group_i)
 
     def dispatch_flushes(**ids: int):
-        """One crop+embed over the queued flush plans.  A host bank's
-        features are written at once; a device bank's embeddings ride
-        the next fetch."""
+        """One crop+embed over the queued flush plans; its embeddings
+        ride the next fetch."""
         with sp.span("flush_dispatch", **ids):
             pe = consumer.dispatch_flush_plans()
-        if pe is not None and pe.host_embeddings is None:
+        if pe is not None:
             deferred.append(pe)
-        elif pe is not None:
-            with sp.span("consume", **ids):
-                consumer.complete_flush(pe)
 
     def write_deferred():
         """Pull each dispatched flush alone and write its features."""

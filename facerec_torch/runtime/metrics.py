@@ -17,7 +17,8 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``dispatch_tracker``, ``dispatch_pack`` under ``dispatch``;
   ``consume_unpack``, ``consume_assemble``, ``consume_plan``,
   ``consume_write`` under ``consume``; ``flush_embed`` under
-  ``flush_dispatch``; with a real bank (``EmbedderBank``),
+  ``flush_dispatch``; with a bank of networks (``EmbedderBank``
+  built from embedders; a stand-in declares no spans or counters),
   ``embed_replay`` under ``flush_embed``: the host's part of the
   chunks' graph replays (the copy in, the launch, the copy out), whose
   host range holds the replayed kernels in a profile; with a bank
@@ -35,7 +36,7 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   ``feature_records`` (lines written to the features file),
   ``feature_records_native`` (of them, those the native writer wrote,
   ``contract/featjson.py``) and ``feature_bytes`` (their bytes); with
-  a real bank (``EmbedderBank``), ``embed_graph_replays`` (chunks of
+  a bank of networks, ``embed_graph_replays`` (chunks of
   ``EMBED_BATCH`` slots replayed from the bank's CUDA graph) and
   ``embed_eager_chunks`` (chunks run eagerly: every chunk on the CPU, a
   shorter one on a card), so ``embed_graph_replays`` over their sum is

@@ -27,7 +27,7 @@ codec runs that way, with ``--no-images``, and then no film is held in
 memory.  The report keeps the RSS at every checkpoint sample beside the
 high-water and the RSS before the run, so growth can be told from fixed
 cost.  The scripted detector replays ground truth and the default
-embedder is a cheap deferred-fetch stub: the soak measures the loop and
+embedder is a cheap stub projection: the soak measures the loop and
 its memory, not model FLOPs.
 """
 from __future__ import annotations
@@ -44,7 +44,6 @@ import torch
 
 from facerec_torch.config import FACENET_DIMS, FACENET_MODELS
 from facerec_torch.pipeline.extract import EmbedderBank
-from facerec_torch.runtime.transfer import pack_tree
 
 
 def _vm_rss_bytes() -> int:
@@ -56,35 +55,34 @@ def _vm_rss_bytes() -> int:
 
 
 class StubBank(EmbedderBank):
-    """Deferred-fetch pooled-pixel projection bank: each crop's 5×5
-    pooled pixels through a fixed random projection per checkpoint (the
-    four checkpoints' output dims: realistic fetch sizes without
-    FaceNet's cost), unit-normalised, left on the device as one uint8
-    buffer."""
+    """A stand-in for the FaceNet bank: each crop's 5×5 pooled pixels
+    through a fixed random projection per checkpoint (the four
+    checkpoints' output dims: realistic fetch sizes without FaceNet's
+    cost), unit-normalised.  It overrides the chunk forward alone, so
+    the bank's own chunking, graph replays, fetch and unpack run
+    around it; ``device`` is where the projection lives (the crops'
+    device, as a captured graph reads it there)."""
 
     def __init__(self, seed: int = 0, device=None):
         rng = np.random.default_rng(seed)
         self.names = list(FACENET_MODELS)
         self.dims = [FACENET_DIMS[n] for n in self.names]
         self.total_dim = sum(self.dims)
-        self.supports_deferred = True
         proj = np.concatenate([rng.normal(size=(75, d)) / 8.0
                                for d in self.dims], axis=1)
         self.proj = torch.from_numpy(proj.astype(np.float32))
         if device is not None:
             self.proj = self.proj.to(device)
 
-    def dispatch_packed(self, crops: torch.Tensor,
-                        spans=None) -> torch.Tensor:
+    def _embed_chunk(self, crops: torch.Tensor) -> torch.Tensor:
         x = crops.float()
         n = x.shape[0]
         flat = x.reshape(n, 5, 32, 5, 32, 3).mean(dim=(2, 4)).reshape(
             n, -1) / 255.0
         e = flat @ self.proj.to(x.device)
-        outs = [p / torch.linalg.vector_norm(
-                    p, dim=1, keepdim=True).clamp_min(1e-9)
-                for p in torch.split(e, self.dims, dim=1)]
-        return pack_tree(torch.cat(outs, dim=1))
+        return torch.cat([p / torch.linalg.vector_norm(
+                              p, dim=1, keepdim=True).clamp_min(1e-9)
+                          for p in torch.split(e, self.dims, dim=1)], dim=1)
 
 
 class _Monitor:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +38,6 @@ MAX_SLOTS = 128
 launches: Dict[str, int] = {"tracker": 0}
 
 _lib = None
-_clock_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,18 +260,9 @@ class _ScanArgs(ctypes.Structure):
                    ("r", ctypes.c_float * 4)])
 
 
-def _kernel(clocks: bool = False):
-    """The ctypes entry point of the kernel, or of its measuring build."""
-    global _lib, _clock_lib
-    if clocks:
-        if _clock_lib is None:
-            lib = _build.load("tracker_clocks")
-            fn = lib.fr_tracker_scan_clocks
-            fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _clock_lib = lib
-        return _clock_lib.fr_tracker_scan_clocks
+def _kernel():
+    """The ctypes entry point of the kernel."""
+    global _lib
     if _lib is None:
         lib = _build.load("tracker")
         lib.fr_tracker_scan.argtypes = [ctypes.POINTER(_ScanArgs),
@@ -341,11 +331,15 @@ def _arg(x: torch.Tensor, dtype: torch.dtype, shape: tuple, dev,
     return x.contiguous().data_ptr()
 
 
-def _launch(cfg: TrackerConfig, state: TrackerState, det_boxes: torch.Tensor,
-            det_valid: torch.Tensor, scene_changes: torch.Tensor,
-            frame0: Union[int, torch.Tensor],
-            clocks: Optional[torch.Tensor] = None
-            ) -> Tuple[TrackerState, TrackEmit]:
+def run_block_cuda(cfg: TrackerConfig, state: TrackerState,
+                   det_boxes: torch.Tensor, det_valid: torch.Tensor,
+                   scene_changes: torch.Tensor,
+                   frame0: Union[int, torch.Tensor]
+                   ) -> Tuple[TrackerState, TrackEmit]:
+    """Kernel ``tracker_scan``: :func:`run_block` on CUDA tensors in one
+    launch on the current stream.  No host read and no host→device copy
+    (an int ``frame0`` is filled in on the card), so a CUDA graph can
+    capture it."""
     check_scan_shapes(cfg, det_boxes)
     dev = det_boxes.device
     if dev.type != "cuda":
@@ -373,45 +367,8 @@ def _launch(cfg: TrackerConfig, state: TrackerState, det_boxes: torch.Tensor,
             setattr(args, n, ptr)
         args.frames, args.dets = b, d
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if clocks is None:
-            err = _kernel()(ctypes.byref(args), stream)
-        else:
-            err = _kernel(clocks=True)(ctypes.byref(args),
-                                       clocks.data_ptr(), stream)
+        err = _kernel()(ctypes.byref(args), stream)
     if err:
         raise RuntimeError(f"tracker_scan launch failed: cudaError {err}")
-    return new, emit
-
-
-def run_block_cuda(cfg: TrackerConfig, state: TrackerState,
-                   det_boxes: torch.Tensor, det_valid: torch.Tensor,
-                   scene_changes: torch.Tensor,
-                   frame0: Union[int, torch.Tensor]
-                   ) -> Tuple[TrackerState, TrackEmit]:
-    """Kernel ``tracker_scan``: :func:`run_block` on CUDA tensors in one
-    launch on the current stream.  No host read and no host→device copy
-    (an int ``frame0`` is filled in on the card), so a CUDA graph can
-    capture it."""
-    out = _launch(cfg, state, det_boxes, det_valid, scene_changes, frame0)
     launches["tracker"] += 1
-    return out
-
-
-CLOCK_PHASES = ("load", "predict", "utilities", "collisions", "jv",
-                "update", "spawn", "emissions")
-
-
-def run_block_clocks(cfg: TrackerConfig, state: TrackerState,
-                     det_boxes: torch.Tensor, det_valid: torch.Tensor,
-                     scene_changes: torch.Tensor,
-                     frame0: Union[int, torch.Tensor]
-                     ) -> Tuple[TrackerState, TrackEmit, torch.Tensor]:
-    """:func:`run_block_cuda` through the measuring build of the kernel
-    (library ``tracker_clocks``): also the (B, len(CLOCK_PHASES)) int64
-    SM cycles that each frame spent in each phase.  For measurement
-    only; it counts no launch."""
-    clocks = torch.zeros((det_boxes.shape[0], len(CLOCK_PHASES)),
-                         dtype=torch.int64, device=det_boxes.device)
-    new, emit = _launch(cfg, state, det_boxes, det_valid, scene_changes,
-                        frame0, clocks)
-    return new, emit, clocks
+    return new, emit

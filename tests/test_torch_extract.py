@@ -3,6 +3,10 @@
 Both packages run the same synthetic mp4 with scripted detections (the
 ground truth) and the same stub embedding projection (pooled crop
 pixels, as ``tests/test_extract_e2e.py:StubEmbedderBank``), on the CPU.
+The port's stub, :class:`StubBank`, is the one the port's other tests
+hold against the JAX package; the mesh tests' worker processes unpickle
+it by import path, so this module imports JAX only inside its
+functions.
 Trajectories, scene changes and JPEG images must be byte-identical;
 feature records too, except the embedding floats: the port's
 ``crop_resize`` sums its two products in another order than XLA, so
@@ -16,39 +20,29 @@ import numpy as np
 import pytest
 import torch
 
-from facerec_tpu.config import ExtractConfig as JaxExtractConfig
-from facerec_tpu.pipeline.extract import run_extract as jax_run_extract
-from facerec_tpu.video.synth import ScriptedDetector as JaxScriptedDetector
-from facerec_tpu.video.synth import make_clip as jax_make_clip
-from tests.test_extract_e2e import StubEmbedderBank as JaxStubBank
-
 from facerec_torch.config import ExtractConfig
-from facerec_torch.pipeline.extract import EmbedderBank, run_extract
+from facerec_torch.pipeline.extract import run_extract
+from facerec_torch.tools import soak
 from facerec_torch.video.synth import ScriptedDetector, make_frames
 
 EMB_ATOL = 1e-5
 MOVIE = "125261"
 
 
-class StubBank(EmbedderBank):
-    """The JAX tests' stub projection, on the port's crops."""
+class StubBank(soak.StubBank):
+    """The JAX tests' stub projection (``StubEmbedderBank`` and
+    ``DeferredStubBank`` of ``tests/test_extract_e2e.py``: ``m1`` and
+    ``m2`` × 16, drawn from ``default_rng(seed)``, unscaled) on the
+    port's crops, through the soak stub's chunk forward and the bank's
+    own dispatch, fetch and unpack."""
 
-    def __init__(self, names=("m1", "m2"), dim=16, seed=0):
+    def __init__(self, seed=0):
         rng = np.random.default_rng(seed)
-        self.proj = {n: rng.normal(size=(75, dim)).astype(np.float32)
-                     for n in names}
-
-    def __call__(self, crops):
-        x = crops.cpu().numpy().astype(np.float32)
-        n = x.shape[0]
-        pooled = x.reshape(n, 5, 32, 5, 32, 3).mean(axis=(2, 4))
-        flat = pooled.reshape(n, -1) / 255.0
-        out = {}
-        for name, p in self.proj.items():
-            e = flat @ p
-            e /= np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-9)
-            out[name] = e
-        return out
+        self.names, self.dims = ["m1", "m2"], [16, 16]
+        self.total_dim = 32
+        self.proj = torch.from_numpy(np.concatenate(
+            [rng.normal(size=(75, 16)) for _ in self.names],
+            axis=1).astype(np.float32))
 
 
 class CrashingDetector(ScriptedDetector):
@@ -67,11 +61,18 @@ KW = dict(block_frames=16, max_detections=8, max_tracks=16)
 
 @pytest.fixture(scope="module")
 def clip(tmp_path_factory):
+    from facerec_tpu.video.synth import make_clip as jax_make_clip
+
     path = str(tmp_path_factory.mktemp("clips") / f"{MOVIE}-TestFilm-1955.mp4")
     return jax_make_clip(path, n_frames=60, cuts=(30,), seed=3)
 
 
 def run_jax(clip, out, n_shards, save_images=True):
+    from facerec_tpu.config import ExtractConfig as JaxExtractConfig
+    from facerec_tpu.pipeline.extract import run_extract as jax_run_extract
+    from facerec_tpu.video.synth import ScriptedDetector as JaxScriptedDetector
+    from tests.test_extract_e2e import StubEmbedderBank as JaxStubBank
+
     for i in range(n_shards):
         jax_run_extract(
             clip.path, JaxExtractConfig(n_shards=n_shards, shard_i=i,

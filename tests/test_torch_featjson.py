@@ -8,9 +8,10 @@ them), every power of two in float32's range, the values around
 like embeddings, and float64 bit patterns.  Flushes: the native path of
 ``ShardConsumer.complete_flush`` writes the bytes of the plain path
 (``feature_record_for`` + ``records.write_feature``) on the same
-``PendingEmbed``, from a fetched buffer and from host embeddings; a
-machine that cannot build the library writes through the plain path; and
-``run_report.json`` counts the lines and bytes of the files.
+``PendingEmbed``, from a slice of a group fetch and from the buffer
+pulled alone; a machine that cannot build the library writes through
+the plain path; and ``run_report.json`` counts the lines and bytes of
+the files.
 """
 import io
 import json
@@ -26,7 +27,7 @@ from facerec_torch.ops.boxes import round_clip_box
 from facerec_torch.pipeline import extract as ex
 from facerec_torch.pipeline import faces as faces_mod
 from facerec_torch.runtime.metrics import Spans
-from facerec_torch.tools.soak import StubBank as DeferredBank
+from facerec_torch.tools.soak import StubBank
 from facerec_torch.video.synth import ScriptedDetector, make_frames
 
 MOVIE = "125261"
@@ -101,19 +102,6 @@ class FetchedBank(ex.EmbedderBank):
         self.names = list(FACENET_MODELS)
         self.dims = [FACENET_DIMS[n] for n in self.names]
         self.total_dim = sum(self.dims)
-        self.supports_deferred = True
-
-
-class HostBank(ex.EmbedderBank):
-    """A host bank: each crop's mean pixel in two checkpoints, at
-    once."""
-
-    def __init__(self):
-        pass
-
-    def __call__(self, crops):
-        m = crops.float().mean(dim=(1, 2)).numpy() / 255.0
-        return {"m1": m, "m2": np.float32(1.0) - m[:, :2]}
 
 
 def consumer(root, bank, device="cpu"):
@@ -159,28 +147,25 @@ def written(c):
         return f.read()
 
 
-@pytest.mark.parametrize("path", ["fetched", "host"])
+@pytest.mark.parametrize("path", ["fetched", "pulled"])
 @pytest.mark.parametrize("n", [1, 7, 190])
 def test_complete_flush_native_equals_plain(tmp_path, n, path):
+    """The flush's bytes as a slice of a group fetch, or pulled alone
+    from ``dev_packed`` (as at a checkpoint and at the end)."""
     rng = np.random.default_rng(n)
     ready, tight, emb = flush(n, rng)
     bank = FetchedBank()
     c = consumer(tmp_path, bank)
     assert c.feature_writer.lib is not None
-    if path == "fetched":
-        # the batch's padded slots follow the real crops
-        buf = np.concatenate([emb, np.full((3, emb.shape[1]), 7.0,
-                                           np.float32)]).view(np.uint8)
-        pe = ex.PendingEmbed(ready, tight, nbytes=buf.size)
-        c.complete_flush(pe, buf.reshape(-1))
-        embeddings = bank.unpack(buf.reshape(-1), n)
-    else:
-        embeddings = dict(zip(bank.names, np.split(
-            emb, np.cumsum(bank.dims)[:-1], axis=1)))
-        pe = ex.PendingEmbed(ready, tight, host_embeddings=embeddings)
-        c.complete_flush(pe)
-    want = plain_text(c, pe, embeddings)
+    # the batch's padded slots follow the real crops
+    buf = np.concatenate([emb, np.full((3, emb.shape[1]), 7.0,
+                                       np.float32)]).view(np.uint8).reshape(-1)
+    pe = ex.PendingEmbed(ready, tight, torch.from_numpy(buf))
+    c.complete_flush(pe, buf if path == "fetched" else None)
+    want = plain_text(c, pe, bank.unpack(buf, n))
     assert_same_text(written(c), want)
+    assert c.spans.counters["fetch_bytes"] == (
+        0 if path == "fetched" else buf.size)
     assert c.spans.counters["feature_records"] == n
     assert c.spans.counters["feature_records_native"] == n
     assert c.spans.counters["feature_bytes"] == len(want)
@@ -197,12 +182,13 @@ def test_without_the_library_json_writes(tmp_path, monkeypatch):
     monkeypatch.setattr(featjson, "load_library", refuse)
     rng = np.random.default_rng(3)
     ready, tight, emb = flush(7, rng)
-    host = {"m1": emb[:, :16].astype(np.float64), "m2": emb[:, 16:40]}
-    c = consumer(tmp_path, FetchedBank())
+    bank = FetchedBank()
+    c = consumer(tmp_path, bank)
     assert c.feature_writer.lib is None
-    pe = ex.PendingEmbed(ready, tight, host_embeddings=host)
-    c.complete_flush(pe)
-    assert_same_text(written(c), plain_text(c, pe, host))
+    buf = emb.view(np.uint8).reshape(-1)
+    pe = ex.PendingEmbed(ready, tight, torch.from_numpy(buf))
+    c.complete_flush(pe, buf)
+    assert_same_text(written(c), plain_text(c, pe, bank.unpack(buf, 7)))
     assert c.spans.counters["feature_records"] == 7
     assert c.spans.counters["feature_records_native"] == 0
     with pytest.raises(RuntimeError, match="no host C"):
@@ -221,17 +207,16 @@ def test_writer_leaves_other_dtypes_to_json(lib):
                    '"b":[-0.0]},"w":2}\n')
 
 
-@pytest.mark.parametrize("bank", ["host", "deferred"])
-def test_report_counts_the_feature_files(tmp_path, bank):
+@pytest.mark.parametrize("group", [1, 2])
+def test_report_counts_the_feature_files(tmp_path, group):
     mem = make_frames(48, cuts=(20,), seed=5,
                       path=f"{MOVIE}-TestFilm-1955.mp4")
     cfg = ExtractConfig(save_images=False, block_frames=16, max_detections=8,
-                        max_tracks=16, fetch_every_blocks=2)
+                        max_tracks=16, fetch_every_blocks=group)
     counters = ex.run_extract(
         mem, cfg, str(tmp_path), detector=ScriptedDetector(mem,
                                                            max_detections=8),
-        embedders=HostBank() if bank == "host" else DeferredBank(),
-        device="cpu")
+        embedders=StubBank(), device="cpu")
     data = tmp_path / f"{MOVIE}-data"
     with open(data / "run_report.json") as f:
         rep = json.load(f)["extract_0-48"]["counters"]

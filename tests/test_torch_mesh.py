@@ -9,8 +9,9 @@ on the rgb and yuv420-delta wires; merged, they equal the serial merge
 byte for byte and an unsharded run in content.  This mirrors
 ``tests/test_parallel_mesh.py``.
 
-The worker processes unpickle the stubs below by import path, so this
-module imports nothing of JAX at its top.
+The worker processes unpickle the stub bank
+(``tests/test_torch_extract.py:StubBank``) and the crashing detector
+below by import path, so neither module imports JAX at its top.
 """
 import dataclasses
 import json
@@ -21,36 +22,15 @@ import pytest
 
 from facerec_torch.config import ExtractConfig, MergeConfig
 from facerec_torch.parallel.extract_mesh import plan_spans, run_extract_mesh
-from facerec_torch.pipeline.extract import EmbedderBank, run_extract
+from facerec_torch.pipeline.extract import run_extract
 from facerec_torch.pipeline.merge import run_merge
 from facerec_torch.video.synth import ScriptedDetector, paint_frames
+from tests.test_torch_extract import StubBank
 
 N = 4
 MOVIE = "125261"
 KW = dict(block_frames=16, max_detections=8, max_tracks=16)
 CPUS = ["cpu"] * N
-
-
-class StubBank(EmbedderBank):
-    """The JAX tests' stub projection (pooled crop pixels), on the
-    port's crops."""
-
-    def __init__(self, names=("m1", "m2"), dim=16, seed=0):
-        rng = np.random.default_rng(seed)
-        self.proj = {n: rng.normal(size=(75, dim)).astype(np.float32)
-                     for n in names}
-
-    def __call__(self, crops):
-        x = crops.cpu().numpy().astype(np.float32)
-        n = x.shape[0]
-        flat = x.reshape(n, 5, 32, 5, 32, 3).mean(axis=(2, 4)).reshape(
-            n, -1) / 255.0
-        out = {}
-        for name, p in self.proj.items():
-            e = flat @ p
-            e /= np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-9)
-            out[name] = e
-        return out
 
 
 class CrashingDetector(ScriptedDetector):

@@ -182,12 +182,10 @@ def test_build_stages_in_memory_and_refusals(tmp_path):
                                  device="cpu")
     # --mesh: two CPU processes with --device cpu; the first two cards
     # otherwise, which a host with fewer lacks
-    from tests.test_torch_mesh import StubBank as MeshStub
-
     paint = paint_frames(8, path=f"{MOVIE}-Mem.mp4")
     stages = orchestrate.build_stages(
         paint, str(tmp_path), cfg, mesh=2, device="cpu",
-        detector=ScriptedDetector(paint), embedders=MeshStub())
+        detector=ScriptedDetector(paint), embedders=StubBank())
     assert [s.name for s in stages if not s.skip] == [
         "extract", "merge", "cluster"]
     counters = stages[1].run()

@@ -11,7 +11,6 @@ import json
 import os
 import time
 
-import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -21,7 +20,7 @@ from facerec_torch.contract import MovieDirs
 from facerec_torch.contract.naming import movie_id_from_filename
 from facerec_torch.pipeline import extract as ex
 from facerec_torch.runtime.metrics import Spans
-from facerec_torch.tools.soak import StubBank as DeferredBank
+from facerec_torch.tools.soak import StubBank
 from facerec_torch.video.synth import ScriptedDetector, make_frames
 
 MOVIE = "125261"
@@ -34,16 +33,16 @@ CHILDREN = {"dispatch": ("dispatch_scene", "dispatch_detector",
             "flush_dispatch": ("flush_embed",)}
 
 
-class HostBank(ex.EmbedderBank):
-    """A host bank: embeddings at once; records each batch's slots."""
+class RecordingBank(StubBank):
+    """The soak's stub bank, recording each batch's slots."""
 
     def __init__(self):
+        super().__init__()
         self.batches = []
 
-    def __call__(self, crops):
-        n = int(crops.shape[0])
-        self.batches.append(n)
-        return {"m": np.ones((n, 4), np.float32)}
+    def dispatch_packed(self, crops, spans=None):
+        self.batches.append(int(crops.shape[0]))
+        return super().dispatch_packed(crops, spans)
 
 
 class CountingDetector(ScriptedDetector):
@@ -63,6 +62,23 @@ class CountingDetector(ScriptedDetector):
 def clip():
     return make_frames(56, cuts=(24,), seed=7,
                        path=f"{MOVIE}-SpanFilm-1955.mp4")
+
+
+def count_payloads(monkeypatch):
+    """The bytes of each block's packed payload, as the loop packs them
+    (the bank packs its embeddings through the same function: those are
+    left out)."""
+    sizes = []
+    pack = ex.pack_tree
+
+    def counting_pack(tree):
+        buf = pack(tree)
+        if not isinstance(tree, torch.Tensor):
+            sizes.append(int(buf.numel()))
+        return buf
+
+    monkeypatch.setattr(ex, "pack_tree", counting_pack)
+    return sizes
 
 
 def run_loop(clip, out, bank, detector=None, **kw):
@@ -115,16 +131,8 @@ def test_span_counts_through_an_exception():
 
 
 def test_phases_children_and_counters(clip, tmp_path, monkeypatch):
-    packed = []
-    pack = ex.pack_tree
-
-    def counting_pack(tree):
-        buf = pack(tree)
-        packed.append(int(buf.numel()))
-        return buf
-
-    monkeypatch.setattr(ex, "pack_tree", counting_pack)
-    bank = HostBank()
+    packed = count_payloads(monkeypatch)
+    bank = RecordingBank()
     detector = CountingDetector(clip, max_detections=8)
     run, wall = run_loop(clip, str(tmp_path), bank, detector)
     sp = run.spans
@@ -145,24 +153,19 @@ def test_phases_children_and_counters(clip, tmp_path, monkeypatch):
     assert c["embed_slots"] == sum(bank.batches) > c["embed_crops"]
     assert c["embed_dispatches"] == len(bank.batches)
     assert c["detections"] == detector.valid > 0
-    assert c["fetch_bytes"] == sum(packed)
-    assert c["fetch_groups"] == 2
+    assert c["fetch_bytes"] == sum(packed) + \
+        c["embed_slots"] * bank.total_dim * 4
+    # two groups of two blocks, then the embeddings of the flushes that
+    # the second group's blocks made
+    assert c["fetch_groups"] == 3
     assert c["upload_bytes"] == clip.frames.nbytes
 
 
 def test_deferred_bank_fetches_the_embeddings(clip, tmp_path, monkeypatch):
-    """A device bank's embeddings ride the group fetches (and the last
-    flush is pulled alone): their bytes count in ``fetch_bytes``."""
-    payload = []
-    pack = ex.pack_tree
-
-    def counting_pack(tree):
-        buf = pack(tree)
-        payload.append(int(buf.numel()))
-        return buf
-
-    monkeypatch.setattr(ex, "pack_tree", counting_pack)
-    bank = DeferredBank()
+    """The bank's embeddings ride the group fetches (and the last flush
+    is pulled alone): their bytes count in ``fetch_bytes``."""
+    payload = count_payloads(monkeypatch)
+    bank = StubBank()
     run, _ = run_loop(clip, str(tmp_path), bank)
     c = run.spans.counters
     assert c["embed_crops"] == run.counters.saved_boxes > 0
@@ -174,7 +177,7 @@ def test_report_holds_every_span_and_counter(clip, tmp_path):
     cfg = ExtractConfig(**KW)
     ex.run_extract(clip, cfg, str(tmp_path),
                    detector=ScriptedDetector(clip, max_detections=8),
-                   embedders=HostBank(), device="cpu")
+                   embedders=RecordingBank(), device="cpu")
     with open(tmp_path / f"{MOVIE}-data" / "run_report.json") as f:
         rep = json.load(f)[f"extract_0-{clip.n_frames}"]["counters"]
     for name in ex.SPANS:
@@ -206,7 +209,7 @@ def test_profiler_sees_the_spans(clip, tmp_path):
                  record_shapes=True) as prof:
         ex.run_extract(clip, ExtractConfig(**KW), str(tmp_path),
                        detector=ScriptedDetector(clip, max_detections=8),
-                       embedders=HostBank(), device="cpu")
+                       embedders=RecordingBank(), device="cpu")
     ranges = host_ranges(prof)
     names = {r[0] for r in ranges}
     assert names == set(ex.SPANS)
@@ -218,7 +221,7 @@ def test_profiler_sees_the_spans(clip, tmp_path):
     assert sorted(kw["frame0"] for name, _, _, kw in ranges
                   if name == "dispatch_detector") == frame0s
     assert sorted(kw["group"] for name, _, _, kw in ranges
-                  if name == "fetch") == [0, 1]
+                  if name == "fetch") == [0, 1, 2]
     assert all(e.device_type == torch.autograd.DeviceType.CPU
                for e in prof.events() if e.name.startswith("extract."))
 
@@ -243,10 +246,10 @@ class ProfilingDetector(ScriptedDetector):
 
 
 def test_profiler_starting_and_stopping_inside_spans(clip, tmp_path):
-    bank = HostBank()
+    bank = RecordingBank()
     detector = ProfilingDetector(clip, 1, max_detections=8)
     run, _ = run_loop(clip, str(tmp_path / "profiled"), bank, detector)
-    plain, _ = run_loop(clip, str(tmp_path / "plain"), HostBank())
+    plain, _ = run_loop(clip, str(tmp_path / "plain"), RecordingBank())
     assert run.spans.parent == plain.spans.parent
     assert run.spans.counters == plain.spans.counters
     ranges = host_ranges(detector.prof)

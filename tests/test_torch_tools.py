@@ -323,14 +323,14 @@ def reference_features(clip, out, save_every=2):
     from facerec_torch.config import ExtractConfig
     from facerec_torch.pipeline.extract import run_extract
     from facerec_torch.video.synth import ScriptedDetector
-    from tests.test_torch_wire import deferred_bank
+    from tests.test_torch_extract import StubBank
 
     cfg = ExtractConfig(block_frames=16, max_detections=8, max_tracks=16,
                         save_images=False, save_every=save_every,
                         resume=False)
     run_extract(clip.path, cfg, out,
                 detector=ScriptedDetector(clip, max_detections=8),
-                embedders=deferred_bank(), device="cpu")
+                embedders=StubBank(), device="cpu")
     movie = os.path.basename(clip.path).split("-")[0]
     return (f"{out}/{movie}-data/features/"
             f"features_{movie}_0-{clip.n_frames}.jsonl"), cfg
@@ -341,7 +341,7 @@ def test_parity_rehearsal_with_a_scripted_detector(tmp_path):
     extract and embedding_eval run on the port, on the CPU."""
     from facerec_torch.tools.parity_rehearsal import run_rehearsal
     from facerec_torch.video.synth import make_clip
-    from tests.test_torch_wire import deferred_bank
+    from tests.test_torch_extract import StubBank
 
     clip = make_clip(str(tmp_path / "97-Rehearse.mp4"), n_frames=16, seed=5)
     ref_feats, cfg = reference_features(clip, str(tmp_path / "ref"))
@@ -350,7 +350,7 @@ def test_parity_rehearsal_with_a_scripted_detector(tmp_path):
     rep = run_rehearsal(
         clip.path, ref_feats, str(tmp_path / "out"), long_side=96,
         max_p95=1e-6, min_recall=0.9, min_precision=0.9, extract_cfg=cfg,
-        detector=EvalAwareScripted(clip, frames), embedders=deferred_bank(),
+        detector=EvalAwareScripted(clip, frames), embedders=StubBank(),
         device="cpu")
     assert "distill" not in rep
     assert rep["detector"]["pass"] and rep["detector"]["recall"] == 1.0
@@ -366,7 +366,7 @@ def test_parity_rehearsal_distills_and_cli_exit_codes(tmp_path):
     1."""
     from facerec_torch.tools.parity_rehearsal import main, run_rehearsal
     from facerec_torch.video.synth import make_clip
-    from tests.test_torch_wire import deferred_bank
+    from tests.test_torch_extract import StubBank
 
     clip = make_clip(str(tmp_path / "99-Rehearse.mp4"), n_frames=32, seed=7)
     ref_feats, cfg = reference_features(clip, str(tmp_path / "ref"))
@@ -378,7 +378,7 @@ def test_parity_rehearsal_distills_and_cli_exit_codes(tmp_path):
         model_kwargs={"backbone_width": 32, "fpn_features": 16},
         distill_kwargs={"batch_size": 4, "learning_rate": 3e-3},
         max_p95=0.05, min_recall=0.5, min_precision=0.5,
-        extract_cfg=extract_cfg, embedders=deferred_bank(), device="cpu")
+        extract_cfg=extract_cfg, embedders=StubBank(), device="cpu")
     assert rep["detector"]["pass"] is True
     assert rep["embeddings"]["n_matched"] > 0
     assert os.path.exists(f"{out}/detector_ckpt.npz")

@@ -1,6 +1,7 @@
 """The port's wire formats and grouped fetches against the JAX package's
 extract, on the ``tests/test_extract_e2e.py`` clip with scripted
-detections and a deferred stub bank, on the CPU.
+detections and the stub bank of ``tests/test_torch_extract.py``, on the
+CPU.
 
 * ``rgb-delta`` files are byte-identical to the port's ``rgb`` files
   (images included); against JAX's ``rgb``, trajectories, scene changes
@@ -26,34 +27,15 @@ from facerec_tpu.video.synth import PureScriptedDetector
 from facerec_tpu.video.synth import ScriptedDetector as JaxScriptedDetector
 from facerec_tpu.video.synth import make_clip as jax_make_clip
 from tests.test_extract_e2e import DeferredStubBank as JaxDeferredBank
-from tests.test_torch_extract import (CrashingDetector, assert_same_outputs,
-                                      read_dir)
+from tests.test_torch_extract import (CrashingDetector, StubBank,
+                                      assert_same_outputs, read_dir)
 
 from facerec_torch.config import ExtractConfig
 from facerec_torch.pipeline import extract as ex
-from facerec_torch.tools.soak import StubBank
 from facerec_torch.video.synth import ScriptedDetector
 
 MOVIE = "125261"
 KW = dict(max_detections=8, max_tracks=16)
-
-
-class DeferredStubBank(StubBank):
-    """The JAX tests' DeferredStubBank (``m1``, ``m2`` × 16, unscaled
-    projections), deferred in torch as the soak's stub."""
-
-    def __init__(self, seed=0):
-        rng = np.random.default_rng(seed)
-        self.names, self.dims = ["m1", "m2"], [16, 16]
-        self.total_dim = 32
-        self.supports_deferred = True
-        self.proj = torch.from_numpy(np.concatenate(
-            [rng.normal(size=(75, 16)) for _ in self.names],
-            axis=1).astype(np.float32))
-
-
-def deferred_bank():
-    return DeferredStubBank()
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +52,7 @@ def run_port(clip, out, wire="rgb", group=3, block_frames=16, images=False,
     return ex.run_extract(
         clip.path, cfg, out,
         detector=detector or ScriptedDetector(clip, max_detections=8),
-        embedders=bank or deferred_bank(), device="cpu")
+        embedders=bank or StubBank(), device="cpu")
 
 
 def run_jax(clip, out, wire="rgb", group=3, images=False, pure=False):
@@ -148,7 +130,7 @@ def test_yuv420_delta_falls_back_to_rgb_on_odd_sizes(tmp_path, capsys):
     ex.run_extract(mem, ExtractConfig(block_frames=8, save_images=False,
                                       wire_format="yuv420-delta", **KW),
                    str(tmp_path), detector=ScriptedDetector(mem),
-                   embedders=deferred_bank(), device="cpu")
+                   embedders=StubBank(), device="cpu")
     assert "falling back to rgb" in capsys.readouterr().err
     with open(tmp_path / f"{MOVIE}-data" / "run_report.json") as f:
         assert json.load(f)["extract_0-20"]["counters"][
@@ -185,7 +167,7 @@ def test_grouped_crash_resume_byte_identical(clip, tmp_path, wire):
 
 
 def test_one_crop_embed_dispatch_per_fetch_group(clip, tmp_path):
-    class CountingBank(DeferredStubBank):
+    class CountingBank(StubBank):
         def __init__(self):
             super().__init__()
             self.crop_embed_calls = self.packed_calls = 0
