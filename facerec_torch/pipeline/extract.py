@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import os
 import sys
@@ -82,8 +83,11 @@ SPANS = PHASES + ("dispatch_scene", "dispatch_detector", "dispatch_tracker",
                   "dispatch_pack", "consume_unpack", "consume_assemble",
                   "consume_plan", "consume_write", "flush_embed")
 COUNTERS = ("embed_crops", "embed_slots", "embed_dispatches", "detections",
-            "fetch_bytes", "fetch_groups", "upload_bytes", "feature_records",
+            "fetch_bytes", "fetch_groups", "upload_bytes",
+            "upload_pinned_blocks", "feature_records",
             "feature_records_native", "feature_bytes")
+# pinned host buffers a block upload cycles through on a card
+UPLOAD_RING = 2
 
 
 @dataclasses.dataclass
@@ -727,6 +731,59 @@ class _HostCopy:
         return self.host.numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The block uploads' stream on ``device``, one for the process: the
+    caching allocator keeps a pool of blocks per stream, so the device
+    blocks one span's uploads leave cached serve the next span's."""
+    return torch.cuda.Stream(device)
+
+
+class _BlockUpload:
+    """The host→device copy of each block.  On a card the block is
+    copied on the host into one of a ring of ``UPLOAD_RING`` pinned
+    buffers, then to a device tensor allocated on a copy stream of its
+    own (:func:`_copy_stream`) without waiting: the copy overlaps the
+    kernels queued before it, and the current (compute) stream waits on
+    the copy's event, not the host on the device.  A slot is refilled
+    once its previous copy has ended.  On the CPU a plain copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots: List[torch.Tensor] = []   # pinned uint8, grown to fit
+        self.copied: List[torch.cuda.Event] = []   # a slot's last copy
+        self.turn = 0
+
+    def __call__(self, block: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(block)
+        if self.device.type != "cuda":
+            return src.to(self.device)
+        i, n = self.turn, block.nbytes
+        self.turn = (i + 1) % UPLOAD_RING
+        if i == len(self.slots):
+            self.slots.append(torch.empty(0, dtype=torch.uint8))
+            self.copied.append(torch.cuda.Event())
+        self.copied[i].synchronize()     # the slot's last copy has ended
+        if self.slots[i].numel() < n:
+            self.slots[i] = torch.empty(n, dtype=torch.uint8,
+                                        pin_memory=True)
+        host = self.slots[i][:n].view(src.dtype).view(src.shape)
+        host.copy_(src)
+        compute, copy = (torch.cuda.current_stream(self.device),
+                         _copy_stream(self.device))
+        # allocated on the copy stream: a block allocated on the compute
+        # stream may still be read there by its previous owner's kernels
+        with torch.cuda.stream(copy):
+            dev = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            self.copied[i].record(copy)
+        compute.wait_event(self.copied[i])
+        # the block step, the crop stack and the fetch read it on the
+        # compute stream: its memory returns to the copy stream after them
+        dev.record_stream(compute)
+        return dev
+
+
 def fetch_group_size(cfg: ExtractConfig, n_frames: int, d_h: int,
                      d_w: int, spans: int = 1) -> int:
     """Blocks per device→host fetch: ``fetch_every_blocks``, at most
@@ -806,11 +863,14 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
                              resume_state=resume_state)
 
     # The loop's time goes to the seven disjoint PHASES.  "dispatch"
-    # only enqueues the block step; the host waits for the device in
-    # "upload", a pageable copy that starts once the device has run the
-    # work queued before it.  FACEREC_PHASE_LOG: the JAX package's
-    # per-block lines on stderr, read from the spans
+    # enqueues the block step, and on a card "upload" is the host's part
+    # of the copy (_BlockUpload), so the host runs ahead of the device
+    # and waits for it where an enqueue blocks: in "dispatch" once the
+    # launch queue is full, in the crops' small copies (flush_dispatch)
+    # and in "fetch".  FACEREC_PHASE_LOG: the JAX package's per-block
+    # lines on stderr, read from the spans
     phase_log = os.environ.get("FACEREC_PHASE_LOG", "") not in ("", "0")
+    upload = _BlockUpload(device)
 
     def log(msg: str) -> None:
         print(f"[phase] {msg}", file=sys.stderr, flush=True)
@@ -822,8 +882,9 @@ def run_span(file, info, cfg: ExtractConfig, dirs: MovieDirs, movie_id: int,
             frames_up = (yuv_ops.encode_delta(frames) if wire_fmt != "rgb"
                          else frames)
         with sp.span("upload", frame0=frame0):
-            dev = torch.from_numpy(frames_up).to(device)
+            dev = upload(frames_up)
         sp.count("upload_bytes", frames_up.nbytes)
+        sp.count("upload_pinned_blocks", int(device.type == "cuda"))
         if phase_log and wire_fmt == "rgb":
             log(f"block upload {sp.last['upload']:.3f}s f0={frame0}")
         with sp.span("dispatch", frame0=frame0):

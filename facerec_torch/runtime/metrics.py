@@ -33,6 +33,9 @@ hold its totals, summed over the spans of a ``--mesh`` run:
   (valid detections of the blocks consumed), ``fetch_bytes`` and
   ``fetch_groups`` (device→host bytes and grouped fetches),
   ``upload_bytes`` (host→device bytes of the block uploads),
+  ``upload_pinned_blocks`` (of those blocks, the ones copied through
+  the pinned staging ring on the copy stream: every block on a card,
+  none on the CPU; ``pipeline/extract.py:_BlockUpload``),
   ``feature_records`` (lines written to the features file),
   ``feature_records_native`` (of them, those the native writer wrote,
   ``contract/featjson.py``) and ``feature_bytes`` (their bytes); with

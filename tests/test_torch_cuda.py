@@ -237,6 +237,53 @@ def test_grouped_rgb_delta_extract_card_equals_cpu(card, tmp_path):
     assert c["feature_records_native"] == c["feature_records"] == len(recs[0])
     assert c["feature_bytes"] == os.path.getsize(
         os.path.join(outs["cuda"], "features", name))
+    # every block on the card went through the pinned ring
+    assert c["upload_pinned_blocks"] == c["blocks"] == 5
+
+
+def test_block_upload_overlaps_queued_kernels(card):
+    """The pinned ring's uploads return while the compute stream still
+    sleeps (the copies wait on nothing of it), no slot is refilled
+    before its copy has ended (each block is its own byte, a shorter
+    last one included), and a reduction queued on the compute stream
+    right after each upload reads the uploaded bytes."""
+    import time
+
+    from facerec_torch.pipeline.extract import UPLOAD_RING, _BlockUpload
+
+    shape = (16, 540, 960, 3)
+    blocks = [np.full(shape, 11 * k + 1, np.uint8) for k in range(6)]
+    blocks.append(np.full((5,) + shape[1:], 250, np.uint8))
+    up = _BlockUpload(card)
+    compute = torch.cuda.current_stream(card)
+
+    def upload_all():
+        devs, sums = [], []
+        for b in blocks:
+            devs.append(up(b))
+            sums.append(devs[-1].sum(dtype=torch.int64))
+        return devs, sums
+
+    def check(devs, sums):
+        torch.cuda.synchronize(card)
+        for b, d, s in zip(blocks, devs, sums):
+            assert d.shape == b.shape
+            assert torch.equal(d.cpu(), torch.from_numpy(b))
+            assert int(s) == int(b.sum(dtype=np.int64))
+
+    check(*upload_all())       # pins the slots, starts the copy stream
+    assert len(up.slots) == UPLOAD_RING
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(compute)
+    torch.cuda._sleep(400_000_000)     # ~0.2 s at the H100's clocks
+    t0 = time.perf_counter()
+    devs, sums = upload_all()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    end.record(compute)
+    check(devs, sums)
+    sleep_ms = start.elapsed_time(end)
+    assert sleep_ms > 100, sleep_ms
+    assert host_ms < sleep_ms / 4, (host_ms, sleep_ms)
 
 
 @pytest.mark.parametrize("stream,max_tracks,d", [

@@ -3,7 +3,8 @@
 The recorder's nesting and totals; on a scripted extract of a tiny
 in-memory clip on the CPU, the seven phases against the loop's wall
 time, each child inside its parent, the counters against what the
-detector, the bank and the packed buffers saw; and the spans as host
+detector, the bank and the packed buffers saw; the CPU's block upload
+(the plain copy, the same files); and the spans as host
 ranges of the torch profiler, including a profiler that starts and
 stops inside a span, as the benchmark's probe does at a block boundary.
 """
@@ -11,6 +12,7 @@ import json
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -183,8 +185,69 @@ def test_report_holds_every_span_and_counter(clip, tmp_path):
     for name in ex.SPANS:
         assert rep[f"{name}_seconds"] >= 0, name
     for name in ex.COUNTERS:
-        assert rep[name] > 0, name
+        # the CPU's blocks take the plain copy, not the pinned ring
+        if name == "upload_pinned_blocks":
+            assert rep[name] == 0
+        else:
+            assert rep[name] > 0, name
     assert rep["consume_write_seconds"] <= rep["consume_seconds"]
+
+
+def extract_files(root):
+    """{relative path: bytes} of an extract's files, its run report
+    (which holds timings) left out."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name != "run_report.json":
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def test_cpu_upload_is_the_plain_copy(clip, tmp_path, monkeypatch):
+    """On the CPU every block takes the plain copy: no copy stream,
+    ``upload_pinned_blocks`` 0, and the files byte for byte those of the
+    loop whose upload is ``torch.from_numpy(block).to(device)``."""
+    cfg = ExtractConfig(**KW)
+
+    def no_stream(device):
+        raise AssertionError("a copy stream on the CPU")
+
+    def extract(out):
+        ex.run_extract(clip, cfg, str(out),
+                       detector=ScriptedDetector(clip, max_detections=8),
+                       embedders=StubBank(), device="cpu")
+        data = out / f"{MOVIE}-data"
+        with open(data / "run_report.json") as f:
+            rep = json.load(f)[f"extract_0-{clip.n_frames}"]["counters"]
+        return extract_files(str(data)), rep
+
+    with monkeypatch.context() as m:
+        m.setattr(ex, "_copy_stream", no_stream)
+        files, rep = extract(tmp_path / "ring")
+    assert rep["upload_pinned_blocks"] == 0 and rep["blocks"] == 4
+    assert rep["upload_bytes"] == clip.frames.nbytes
+    monkeypatch.setattr(ex._BlockUpload, "__call__",
+                        lambda self, block: torch.from_numpy(block).to(
+                            self.device))
+    plain, _ = extract(tmp_path / "plain")
+    assert any(k.startswith("features") for k in files)
+    assert files == plain
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 32, 3),     # an RGB block
+                                   (16, 36, 32),        # an I420 block
+                                   (5, 24, 32, 3)])     # a short last one
+def test_block_upload_on_the_cpu(shape):
+    """The CPU's upload returns the block's bytes and pins nothing."""
+    up = ex._BlockUpload(torch.device("cpu"))
+    block = np.random.default_rng(3).integers(0, 256, shape, np.uint8)
+    dev = up(block)
+    assert dev.device.type == "cpu" and dev.dtype == torch.uint8
+    assert np.array_equal(dev.numpy(), block)
+    assert up.slots == [] and up.copied == []
 
 
 def host_ranges(prof):
